@@ -1,0 +1,117 @@
+"""SegTask: the eval core for one (config, model) pair, voxel modality.
+
+Counterpart of ``openpcseg_tpu/engine/task.py`` (``default_caps``,
+``preprocess``, ``eval_step``, ``predict_step``). One eval step =
+voxelize + geometry pass + MinkUNet forward + argmax re-projected to every
+point through the inverse map + confusion matrix, all on `device`.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..core.batch import voxelize_points_batch
+from ..core.geometry import build_pyramid
+from ..models import build_segmentor
+from ..ops.coords import Keys
+from ..utils.metrics import confusion_matrix
+
+
+def default_caps(voxel_cap0: int, num_levels: int,
+                 ratios: Optional[Sequence[float]] = None) -> list:
+    """Capacity per pyramid level, rounded up to multiples of 128."""
+    if ratios is None:
+        ratios = [1.0, 0.7, 0.38, 0.2, 0.11, 0.06, 0.03][:num_levels]
+    caps = []
+    for l in range(num_levels):
+        r = ratios[l] if l < len(ratios) else ratios[-1] / (
+            2 ** (l - len(ratios) + 1))
+        c = max(256, int(voxel_cap0 * r))
+        caps.append((c + 127) // 128 * 128)
+    return caps
+
+
+def batch_to_device(batch: Dict[str, np.ndarray],
+                    device) -> Dict[str, torch.Tensor]:
+    """numpy batch dict (data.raycast schema) -> tensors on `device`."""
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+class SegTask:
+    """Model + geometry schedule + the eval step functions.
+
+    cfgs is a plain dict with the yaml config's blocks (MODEL, DATA and the
+    optional TPU block for VOXEL_CAP_PER_SCAN / VOXEL_CAP_RATIOS); the caps
+    are sized for batch-1 serving, overflow shows in voxel_overflow. The
+    model's weights are drawn from a torch.Generator seeded with `seed`;
+    load trained or converted weights into ``task.model`` afterwards."""
+
+    def __init__(self, cfgs: Dict[str, Any], num_class: int, *,
+                 compute_dtype: torch.dtype = torch.float32,
+                 device="cpu", voxel_cap_per_scan: Optional[int] = None,
+                 seed: int = 0):
+        self.cfgs = cfgs
+        self.num_class = num_class
+        self.device = torch.device(device)
+        self.compute_dtype = compute_dtype
+        if cfgs.get("MODALITY", "voxel") != "voxel":
+            raise NotImplementedError("only the voxel modality is ported")
+        self.voxel_size = float(cfgs["DATA"]["VOXEL_SIZE"])
+        self.model = build_segmentor(cfgs["MODEL"], num_class,
+                                     compute_dtype=compute_dtype)
+        self.model.reset_parameters(torch.Generator().manual_seed(seed))
+        self.model.to(self.device).eval()
+        spec = type(self.model).geometry_spec()
+        self.devox_levels = spec["devox_levels"]
+        tpu_cfg = cfgs.get("TPU", {})
+        cap0 = voxel_cap_per_scan or tpu_cfg.get("VOXEL_CAP_PER_SCAN", 98304)
+        self.caps = default_caps(cap0, spec["num_levels"],
+                                 tpu_cfg.get("VOXEL_CAP_RATIOS", None))
+
+    def preprocess(self, batch: Dict[str, torch.Tensor]):
+        """Voxelize + geometry pass -> (VoxelBatch, VoxelPyramid)."""
+        vb = voxelize_points_batch(
+            batch["xyz"], batch["feats"], batch["labels"], batch["valid"],
+            voxel_size=self.voxel_size, voxel_cap=self.caps[0])
+        pyr = build_pyramid(
+            vb.voxel_coords, vb.voxel_valid, self.caps,
+            level0_keys=Keys(vb.voxel_keys_hi, vb.voxel_keys_lo),
+            devox_levels=self.devox_levels)
+        return vb, pyr
+
+    def voxel_overflow(self, vb, pyr) -> torch.Tensor:
+        """Voxels dropped over ALL pyramid levels; level 0 counts against
+        the pre-dedup true count (task.py:377-380)."""
+        caps = torch.as_tensor(self.caps, device=pyr.level_counts.device)
+        lvl = (pyr.level_counts - caps).clamp(min=0).sum()
+        return (vb.num_voxels - self.caps[0]).clamp(min=0) + lvl
+
+    @torch.no_grad()
+    def forward(self, batch: Dict[str, torch.Tensor]):
+        """-> (VoxelBatch, VoxelPyramid, voxel logits [V, num_class] f32)."""
+        vb, pyr = self.preprocess(batch)
+        return vb, pyr, self.model(vb.voxel_feats, pyr)
+
+    def _point_pred(self, vb, logits) -> torch.Tensor:
+        voxel_pred = logits.argmax(dim=-1).to(torch.int32)
+        inv = vb.inverse_map
+        return torch.where(inv >= 0, voxel_pred[inv.clamp(min=0).long()],
+                           torch.zeros_like(inv))
+
+    @torch.no_grad()
+    def eval_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+        """Forward + point re-projection + confusion matrix."""
+        vb, pyr, logits = self.forward(batch)
+        hist = confusion_matrix(self._point_pred(vb, logits),
+                                vb.point_labels, vb.point_valid,
+                                self.num_class)
+        return {"hist": hist, "voxel_overflow": self.voxel_overflow(vb, pyr),
+                "level_counts": pyr.level_counts}
+
+    @torch.no_grad()
+    def predict_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Per-point predictions [B, Np] int32."""
+        vb, _, logits = self.forward(batch)
+        return self._point_pred(vb, logits).reshape(batch["xyz"].shape[0], -1)

@@ -1,0 +1,141 @@
+"""Sparse network building blocks (torch.nn), eval semantics.
+
+Counterpart of ``openpcseg_tpu/models/layers.py``: SparseConv,
+MaskedBatchNorm, BasicConvBlock, ResidualBlock and ``repeated_blocks``.
+Layers take their kernel maps and validity masks from a precomputed
+VoxelPyramid; they never build geometry themselves.
+
+Conv dispatch (the port's rewrite of ``layers.py:116-148``): each conv
+names its kind, and each kind has one wrapper that runs its plain version
+for a CPU tensor and its Hopper kernel for a CUDA tensor, for every Cin
+(the JAX package keeps Cin < 16 on XLA):
+
+    "subm" (3x3x3 submanifold)  -> ops.subm_conv.subm_conv  (K1)
+    "down" (k2/s2 strided)      -> ops.updown.down_conv     (K3)
+    "up"   (k2/s2 transposed)   -> ops.updown.up_conv       (K4)
+    1x1x1                       -> ops.sparse_conv.sparse_conv_1x1 (matmul)
+"""
+from __future__ import annotations
+
+import math
+from typing import List, Optional
+
+import torch
+from torch import nn
+
+from ..ops.sparse_conv import sparse_conv_1x1
+from ..ops.subm_conv import subm_conv
+from ..ops.updown import down_conv, up_conv
+
+_CONVS = {"subm": (27, subm_conv), "down": (8, down_conv), "up": (8, up_conv)}
+
+# flax variance_scaling(1.0, "fan_in", "truncated_normal"): the std of a
+# unit normal truncated to [-2, 2] is 0.87962566...
+_TRUNC_STD = 0.87962566103423978
+
+
+class SparseConv(nn.Module):
+    """Sparse convolution over a precomputed kernel map. weight is
+    [K, Cin, Cout] in ``ops.kmap.kernel_offsets`` order ([Cin, Cout] for
+    the 1x1 kind); it returns the masked output in the promoted type."""
+
+    def __init__(self, cin: int, cout: int, kind: str = "subm",
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if kind != "1x1" and kind not in _CONVS:
+            raise ValueError(f"unknown conv kind {kind!r}")
+        self.kind = kind
+        self.compute_dtype = compute_dtype
+        k = 1 if kind == "1x1" else _CONVS[kind][0]
+        shape = (cin, cout) if kind == "1x1" else (k, cin, cout)
+        self.weight = nn.Parameter(torch.empty(shape))
+        self.fan_in = k * cin
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        std = math.sqrt(1.0 / self.fan_in) / _TRUNC_STD
+        nn.init.trunc_normal_(self.weight, std=std, a=-2 * std, b=2 * std,
+                              generator=generator)
+
+    def forward(self, feats: torch.Tensor, kmap: Optional[torch.Tensor],
+                out_valid: torch.Tensor) -> torch.Tensor:
+        cdt = self.compute_dtype
+        if self.kind == "1x1":
+            return sparse_conv_1x1(feats, self.weight, out_valid,
+                                   compute_dtype=cdt)
+        out = _CONVS[self.kind][1](feats.to(cdt).contiguous(), self.weight,
+                                   kmap)
+        out = torch.where(out_valid[:, None], out, 0.0)
+        return out.to(torch.promote_types(feats.dtype, cdt))
+
+
+class MaskedBatchNorm(nn.Module):
+    """BatchNorm over valid rows with running statistics (eval semantics,
+    torch BN eps 1e-5); padding rows come out zero. Batch statistics and
+    their cross-device sync come with the training slice."""
+
+    def __init__(self, c: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer("running_mean", torch.zeros(c))
+        self.register_buffer("running_var", torch.ones(c))
+
+    def forward(self, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(
+                "MaskedBatchNorm: only eval (running statistics) is ported")
+        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
+        y = (x.float() - self.running_mean) * inv + self.bias
+        return torch.where(valid[:, None], y, 0.0).to(x.dtype)
+
+
+class BasicConvBlock(nn.Module):
+    """conv -> BN -> ReLU."""
+
+    def __init__(self, cin: int, cout: int, kind: str = "subm",
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv = SparseConv(cin, cout, kind, compute_dtype)
+        self.bn = MaskedBatchNorm(cout)
+
+    def forward(self, feats, kmap, out_valid):
+        return torch.relu(self.bn(self.conv(feats, kmap, out_valid),
+                                  out_valid))
+
+
+class ResidualBlock(nn.Module):
+    """conv-BN-ReLU-conv-BN + shortcut (1x1 conv + BN when the width
+    changes), within one level."""
+
+    def __init__(self, cin: int, cout: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv1 = SparseConv(cin, cout, "subm", compute_dtype)
+        self.bn1 = MaskedBatchNorm(cout)
+        self.conv2 = SparseConv(cout, cout, "subm", compute_dtype)
+        self.bn2 = MaskedBatchNorm(cout)
+        self.shortcut = None
+        if cin != cout:
+            self.shortcut = SparseConv(cin, cout, "1x1", compute_dtype)
+            self.bn_sc = MaskedBatchNorm(cout)
+
+    def forward(self, feats, kmap, valid):
+        x = torch.relu(self.bn1(self.conv1(feats, kmap, valid), valid))
+        x = self.bn2(self.conv2(x, kmap, valid), valid)
+        sc = feats
+        if self.shortcut is not None:
+            sc = self.bn_sc(self.shortcut(feats, None, valid), valid)
+        return torch.relu(x + sc)
+
+
+BLOCKS = {"ResBlock": ResidualBlock}
+
+
+def repeated_blocks(block_cls, cin: int, planes: int, n: int,
+                    compute_dtype: torch.dtype) -> nn.ModuleList:
+    """n blocks: the first takes cin -> planes, the rest planes -> planes
+    (JAX scans blocks 2..n over stacked parameters; here a plain loop)."""
+    blocks: List[nn.Module] = [block_cls(cin, planes, compute_dtype)]
+    blocks += [block_cls(planes, planes, compute_dtype) for _ in range(n - 1)]
+    return nn.ModuleList(blocks)

@@ -1,0 +1,116 @@
+"""MinkUNet: sparse 3D UNet segmentor (eval forward).
+
+Counterpart of ``openpcseg_tpu/models/minkunet.py``: stem + 4 down stages
+(stride-2 conv + residual blocks) + 4 up stages (transposed conv + skip
+concat + blocks) + a float32 classifier over the devoxelized [z1, z2, z3]
+of levels 4, 2 and 0. Config keys: IN_FEATURE_DIM, NUM_LAYER, PLANES, cr,
+BLOCK. Dropout is the identity at eval and is not part of this module.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import torch
+from torch import nn
+
+from ..core.tensor import VoxelPyramid
+from .layers import (BLOCKS, BasicConvBlock, MaskedBatchNorm, SparseConv,
+                     repeated_blocks)
+
+
+class MinkUNet(nn.Module):
+    NUM_LEVELS = 5
+    DEVOX_LEVELS = (4, 2, 0)
+
+    def __init__(self, model_cfgs: Dict[str, Any], num_class: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        cfg = model_cfgs
+        self.in_dim = cfg.get("IN_FEATURE_DIM", 4)
+        num_layer = cfg.get("NUM_LAYER", [2, 3, 4, 6, 2, 2, 2, 2])
+        block = cfg.get("BLOCK", "Bottleneck")
+        if block not in BLOCKS:
+            raise NotImplementedError(f"BLOCK {block!r} is not ported yet")
+        block_cls = BLOCKS[block]
+        cr = cfg.get("cr", 1.0)
+        cs = [int(cr * x) for x in
+              cfg.get("PLANES", [32, 32, 64, 128, 256, 256, 128, 96, 96])]
+        cdt = compute_dtype
+        self.compute_dtype = cdt
+
+        self.stem = nn.ModuleList([
+            BasicConvBlock(self.in_dim, cs[0], "subm", cdt),
+            BasicConvBlock(cs[0], cs[0], "subm", cdt)])
+        self.downs = nn.ModuleList()
+        self.down_blocks = nn.ModuleList()
+        c = cs[0]
+        skips = []
+        for i in range(4):
+            skips.append(c)
+            self.downs.append(BasicConvBlock(c, c, "down", cdt))
+            self.down_blocks.append(
+                repeated_blocks(block_cls, c, cs[i + 1], num_layer[i], cdt))
+            c = cs[i + 1]
+        self.ups = nn.ModuleList()
+        self.up_bns = nn.ModuleList()
+        self.up_blocks = nn.ModuleList()
+        for i in range(4):
+            planes = cs[5 + i]
+            self.ups.append(SparseConv(c, planes, "up", cdt))
+            self.up_bns.append(MaskedBatchNorm(planes))
+            self.up_blocks.append(repeated_blocks(
+                block_cls, planes + skips[3 - i], planes, num_layer[4 + i],
+                cdt))
+            c = planes
+        self.classifier = nn.Linear(cs[4] + cs[6] + cs[8], num_class)
+
+    @classmethod
+    def geometry_spec(cls) -> dict:
+        return dict(num_levels=cls.NUM_LEVELS, devox_levels=cls.DEVOX_LEVELS)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Flax's default initializers, drawn from `generator`: variance
+        scaling for the convs, lecun-normal classifier, BN identity."""
+        for m in self.modules():
+            if isinstance(m, SparseConv):
+                m.reset_parameters(generator)
+        w = self.classifier.weight
+        std = math.sqrt(1.0 / w.shape[1]) / 0.87962566103423978
+        nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                              generator=generator)
+        nn.init.zeros_(self.classifier.bias)
+
+    @staticmethod
+    def _run(blocks, x, lvl):
+        for b in blocks:
+            x = b(x, lvl.subm_kmap, lvl.valid)
+        return x
+
+    def forward(self, voxel_feats: torch.Tensor,
+                pyr: VoxelPyramid) -> torch.Tensor:
+        lv = pyr.levels
+        x = voxel_feats[:, :self.in_dim].to(self.compute_dtype)
+        for blk in self.stem:
+            x = blk(x, lv[0].subm_kmap, lv[0].valid)
+
+        feats = [x]
+        for i in range(4):
+            coarse = lv[i + 1]
+            x = self.downs[i](x, coarse.down_kmap, coarse.valid)
+            x = self._run(self.down_blocks[i], x, coarse)
+            feats.append(x)
+        z = [pyr.devox[4].apply(x)]
+
+        for i in range(4):
+            fine = lv[3 - i]
+            x = self.ups[i](x, fine.up_kmap, fine.valid)
+            x = torch.relu(self.up_bns[i](x, fine.valid))
+            x = torch.cat([x, feats[3 - i]], dim=-1)
+            x = self._run(self.up_blocks[i], x, fine)
+            if i == 1:
+                z.append(pyr.devox[2].apply(x))
+        z.append(pyr.devox[0].apply(x))
+
+        logits = self.classifier(torch.cat(z, dim=-1).float())
+        return torch.where(pyr.points.valid[:, None], logits, 0.0)

@@ -1,0 +1,141 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+The sources live in ``openpcseg_torch/csrc`` (plain C ABI, no PyTorch
+headers). At first use on a CUDA tensor they are compiled with ``nvcc`` for
+``sm_90a`` into one shared library under ``build/openpcseg_torch/`` at the
+repository root, named by a hash of the sources so an edit forces a
+rebuild, and loaded with ctypes. Nothing here runs at import time, so the
+CPU tests import every module without a compiler.
+
+A failed build raises; no wrapper falls back to its plain version for a
+CUDA tensor.
+
+``LAUNCHES`` counts kernel launches per wrapper (incremented right after a
+successful launch, nowhere else); ``PLAIN_ON_CUDA`` counts calls of a plain
+version on a CUDA tensor, which only a kernel-vs-plain comparison makes.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "openpcseg_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+LAUNCHES = {"subm": 0, "down": 0, "up": 0, "devox": 0}
+PLAIN_ON_CUDA = {"subm": 0, "down": 0, "up": 0, "devox": 0}
+
+# name -> number of pointer arguments before the int arguments
+_SIGNATURES = {
+    "opcs_gather_gemm_bf16": (4, 4),   # feats, w, kmap, out | n_out, K, cin, cout
+    "opcs_parent_gemm_bf16": (5, 3),   # src, w, parent, parity, out | n_out, cin, cout
+    "opcs_devox_bf16": (4, 2),         # vox, idx, w, out | n, c
+    "opcs_devox_f32": (4, 2),
+}
+
+_LIB = None
+BUILD_INFO: dict = {}
+
+
+def reset_counts() -> None:
+    for d in (LAUNCHES, PLAIN_ON_CUDA):
+        for k in d:
+            d[k] = 0
+
+
+def note_plain(name: str, x: torch.Tensor) -> None:
+    if x.is_cuda:
+        PLAIN_ON_CUDA[name] += 1
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _find_nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"):
+        p = Path(cand) / "bin" / "nvcc"
+        if cand and p.exists():
+            return str(p)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels of openpcseg_torch "
+                           "need the CUDA toolkit to build")
+    return found
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into one shared library (cached by source hash)."""
+    srcs = _sources()
+    h = hashlib.sha256()
+    for s in srcs + sorted(CSRC.glob("*.cuh")):
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    out = BUILD_DIR / f"libopcs_kernels_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        BUILD_INFO.update(path=str(out), seconds=0.0, cached=True)
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
+            f"{res.stdout}\n{res.stderr}")
+    os.replace(tmp, out)
+    BUILD_INFO.update(path=str(out), seconds=secs, cached=False,
+                      ptxas=res.stderr)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _LIB
+    if _LIB is None:
+        so = ctypes.CDLL(str(build()))
+        for name, (n_ptr, n_int) in _SIGNATURES.items():
+            fn = getattr(so, name)
+            fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+        _LIB = so
+    return _LIB
+
+
+def launch(name: str, counter: str, *args) -> None:
+    """Call a C entry point on the current stream; raise on a CUDA error.
+    Temporaries the caller frees after this returns stay safe: PyTorch's
+    caching allocator hands their memory out again only in stream order."""
+    fn = getattr(lib(), name)
+    stream = torch.cuda.current_stream().cuda_stream
+    err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+    LAUNCHES[counter] += 1
+
+
+def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
+               device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, kernel takes {dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: {t.dim()}-d, expected {ndim}-d")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+    if t.numel() >= 2 ** 31:
+        raise ValueError(f"{name}: {t.numel()} elements exceed int32 indexing")

@@ -1,0 +1,33 @@
+"""Masked segment reductions over fixed-capacity padded buffers.
+
+Counterpart of ``openpcseg_tpu/ops/segment.py`` (the parts the voxel eval
+path uses). ``ids`` is int32 with -1 meaning "dropped": such rows go to an
+overflow slot ``num_segments`` that is cut off at the end.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _route(ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Map -1 / out-of-range ids to the overflow slot `num_segments`."""
+    bad = (ids < 0) | (ids >= num_segments)
+    return torch.where(bad, torch.full_like(ids, num_segments), ids).long()
+
+
+def segment_sum(data: torch.Tensor, ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """Sum rows of `data` [N, ...] into `num_segments` buckets by `ids` [N]."""
+    out = data.new_zeros((num_segments + 1,) + tuple(data.shape[1:]))
+    out.index_add_(0, _route(ids, num_segments), data)
+    return out[:num_segments]
+
+
+def segment_min_index(ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """First-occurrence row index per segment (num rows where empty)."""
+    n = ids.shape[0]
+    iota = torch.arange(n, dtype=torch.int32, device=ids.device)
+    out = torch.full((num_segments + 1,), n, dtype=torch.int32,
+                     device=ids.device)
+    out.scatter_reduce_(0, _route(ids, num_segments), iota, reduce="amin")
+    return out[:num_segments]

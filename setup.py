@@ -20,7 +20,12 @@ setup(
     description="TPU-native LiDAR point cloud segmentation framework "
                 "(JAX/XLA/Pallas)",
     packages=find_packages(exclude=["tests", "tools"]),
+    # the PyTorch / CUDA port ships its kernel sources: they are compiled
+    # with nvcc at first use on a CUDA tensor (openpcseg_torch/ops/cuda_lib.py)
+    package_data={"openpcseg_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "orbax-checkpoint", "numpy",
                       "pyyaml"],
+    # openpcseg_torch (the PyTorch / CUDA port) needs torch; nvcc at run time
+    extras_require={"torch": ["torch", "numpy"]},
 )

@@ -1,0 +1,141 @@
+"""Boundaries of the port: what it imports, the config chip_smoke.py drives,
+and that a wrapper handed a CUDA tensor never falls back to its plain
+version when the kernel library cannot be built."""
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from openpcseg_torch.ops import cuda_lib, devox, subm_conv, updown
+
+ROOT = Path(__file__).resolve().parents[1]
+
+SLICE_MODULES = [
+    "openpcseg_torch", "openpcseg_torch.ops.coords",
+    "openpcseg_torch.ops.segment", "openpcseg_torch.ops.kmap",
+    "openpcseg_torch.ops.voxelize", "openpcseg_torch.ops.sparse_conv",
+    "openpcseg_torch.ops.subm_conv", "openpcseg_torch.ops.updown",
+    "openpcseg_torch.ops.devox", "openpcseg_torch.ops.cuda_lib",
+    "openpcseg_torch.core.tensor", "openpcseg_torch.core.batch",
+    "openpcseg_torch.core.geometry", "openpcseg_torch.models",
+    "openpcseg_torch.models.layers", "openpcseg_torch.models.minkunet",
+    "openpcseg_torch.utils.metrics", "openpcseg_torch.utils.convert",
+    "openpcseg_torch.engine.task", "openpcseg_torch.data.raycast",
+]
+
+
+def test_port_imports_no_jax_flax_optax_or_yaml():
+    code = (
+        "import sys, importlib\n"
+        f"for m in {SLICE_MODULES!r}: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'yaml', 'openpcseg_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "clean" in res.stdout
+
+
+def test_chip_smoke_model_is_the_mk34_cr10_config():
+    import chip_smoke
+    cfg = yaml.safe_load((ROOT / "tools/cfgs/voxel/semantic_kitti/"
+                          "minkunet_mk34_cr10.yaml").read_text())
+    assert chip_smoke.MODEL_CFG == cfg["MODEL"]
+    assert chip_smoke.CFGS["DATA"]["VOXEL_SIZE"] == cfg["DATA"]["VOXEL_SIZE"]
+    assert (chip_smoke.CFGS["TPU"]["VOXEL_CAP_PER_SCAN"]
+            == cfg["TPU"]["VOXEL_CAP_PER_SCAN"])
+    assert chip_smoke.N_POINTS == cfg["TPU"]["POINT_CAP_PER_SCAN"]
+
+
+class _CudaFlagged(torch.Tensor):
+    """A CPU tensor that reports is_cuda, to reach a wrapper's CUDA branch
+    on a machine without a card."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def _flag(t):
+    return t.as_subclass(_CudaFlagged)
+
+
+def _calls(rng):
+    """One call of each wrapper, with CUDA-flagged kernel-ready operands."""
+    f = _flag(torch.zeros(16, 8, dtype=torch.bfloat16))
+    km27 = torch.full((27, 16), -1, dtype=torch.int32)
+    km8 = torch.full((8, 16), -1, dtype=torch.int32)
+    w27 = torch.as_tensor(rng.normal(size=(27, 8, 8)), dtype=torch.float32)
+    w8 = torch.as_tensor(rng.normal(size=(8, 8, 8)), dtype=torch.float32)
+    idx = torch.full((8, 16), -1, dtype=torch.int32)
+    wts = torch.zeros(8, 16)
+    return {
+        "subm": lambda: subm_conv.subm_conv(f, w27, km27),
+        "down": lambda: updown.down_conv(f, w8, km8),
+        "up": lambda: updown.up_conv(f, w8, km8),
+        "devox": lambda: devox.devoxelize(f, idx, wts),
+    }
+
+
+@pytest.fixture
+def no_library(monkeypatch, tmp_path):
+    """No built library, an empty build directory, and device checks that
+    accept the flagged CPU tensors."""
+    monkeypatch.setattr(cuda_lib, "_LIB", None)
+    monkeypatch.setattr(cuda_lib, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cuda_lib, "check_cuda", lambda *a, **k: None)
+    cuda_lib.reset_counts()
+    yield
+    cuda_lib.reset_counts()
+
+
+@pytest.mark.parametrize("name", ["subm", "down", "up", "devox"])
+def test_wrapper_raises_without_nvcc(no_library, monkeypatch, rng, name):
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+    monkeypatch.setattr(cuda_lib, "_find_nvcc", no_nvcc)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _calls(rng)[name]()
+    assert cuda_lib.LAUNCHES[name] == 0
+    assert sum(cuda_lib.PLAIN_ON_CUDA.values()) == 0
+
+
+@pytest.mark.parametrize("name", ["subm", "down", "up", "devox"])
+def test_wrapper_raises_when_nvcc_fails(no_library, monkeypatch, rng, name):
+    monkeypatch.setattr(cuda_lib, "_find_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(
+        cuda_lib.subprocess, "run",
+        lambda cmd, **kw: subprocess.CompletedProcess(cmd, 1, "", "error"))
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        _calls(rng)[name]()
+    assert cuda_lib.LAUNCHES[name] == 0
+    assert sum(cuda_lib.PLAIN_ON_CUDA.values()) == 0
+
+
+def test_check_cuda_rejects_what_the_kernels_do_not_take():
+    cpu = torch.device("cpu")
+    x = torch.zeros(4, 6, dtype=torch.bfloat16)
+    cuda_lib.check_cuda(x, "x", torch.bfloat16, 2, cpu)
+    with pytest.raises(TypeError):
+        cuda_lib.check_cuda(x.float(), "x", torch.bfloat16, 2, cpu)
+    with pytest.raises(ValueError):
+        cuda_lib.check_cuda(x.t(), "x", torch.bfloat16, 2, cpu)
+    with pytest.raises(ValueError):
+        cuda_lib.check_cuda(x[None], "x", torch.bfloat16, 2, cpu)
+    with pytest.raises(ValueError):
+        cuda_lib.check_cuda(x, "x", torch.bfloat16, 2, torch.device("meta"))
+
+
+def test_build_flags_target_sm90a():
+    assert "arch=compute_90a,code=sm_90a" in cuda_lib.NVCC_FLAGS
+    srcs = {p.name for p in cuda_lib._sources()}
+    assert srcs == {"gather_gemm.cu", "parent_gemm.cu", "devox.cu"}
+    assert np.all([(cuda_lib.CSRC / s).read_text().count("OPCS_API") >= 1
+                   for s in srcs])
