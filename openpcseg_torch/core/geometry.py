@@ -1,4 +1,4 @@
-"""Geometry pass: build the voxel pyramid and every kernel map of a forward.
+"""Geometry pass: build the voxel pyramid and every kernel map of a step.
 
 Counterpart of ``openpcseg_tpu/core/geometry.py build_pyramid``, voxel
 modality (the points are the level-0 voxel sites) with isotropic stride-2
@@ -13,7 +13,7 @@ import torch
 
 from ..ops.coords import Keys, lookup_keys_z3, make_keys
 from ..ops.kmap import _self_z_neighbors, build_downsample, build_subm_kmap
-from ..ops.voxelize import corner_offsets
+from ..ops.voxelize import corner_offsets, devox_transpose_table
 from .tensor import DevoxTable, PointBuffer, SparseLevel, VoxelPyramid
 
 
@@ -131,8 +131,11 @@ def build_pyramid(coords0: torch.Tensor, valid0: torch.Tensor,
         idx = torch.where(anc[None, :] >= 0, ct[:, anc.clamp(min=0).long()],
                           torch.full((8, anc.shape[0]), -1, dtype=torch.int32,
                                      device=dev)).contiguous()
-        w = _devox_weights(point_coords, l0.valid, levels[l].stride, idx)
-        devox[l] = DevoxTable(idx=idx, weights=w.contiguous())
+        w = _devox_weights(point_coords, l0.valid, levels[l].stride,
+                           idx).contiguous()
+        t_ptr, t_point, t_weight = devox_transpose_table(idx, w, caps[l])
+        devox[l] = DevoxTable(idx=idx, weights=w, num_voxels=caps[l],
+                              t_ptr=t_ptr, t_point=t_point, t_weight=t_weight)
 
     return VoxelPyramid(levels=tuple(levels), points=points,
                         point_to_voxel0=p2v0, devox=devox,

@@ -45,18 +45,24 @@ class PointBuffer:
 
 @dataclass
 class DevoxTable:
-    """8-corner devoxelize indices and trilinear weights at one level.
-    identity=True: the points ARE this level's rows (stride 1)."""
+    """8-corner devoxelize indices and trilinear weights at one level, and
+    their transpose by voxel for the backward (ops.voxelize.
+    devox_transpose_table). identity=True: the points ARE this level's
+    rows (stride 1)."""
 
-    idx: Optional[torch.Tensor]      # [8, n] int32 (-1 miss)
-    weights: Optional[torch.Tensor]  # [8, n] float32
+    idx: Optional[torch.Tensor]       # [8, n] int32 (-1 miss)
+    weights: Optional[torch.Tensor]   # [8, n] float32
     identity: bool = False
+    num_voxels: int = 0               # rows of the level (its capacity)
+    t_ptr: Optional[torch.Tensor] = None     # [V + 1] int32 CSR offsets
+    t_point: Optional[torch.Tensor] = None   # [8n] int32 contributor point
+    t_weight: Optional[torch.Tensor] = None  # [8n] float32 its weight
 
     def apply(self, voxel_feats: torch.Tensor) -> torch.Tensor:
         if self.identity:
             return voxel_feats
-        from ..ops.devox import devoxelize
-        return devoxelize(voxel_feats, self.idx, self.weights)
+        from ..ops.devox import DevoxFn
+        return DevoxFn.apply(voxel_feats, self)
 
 
 @dataclass

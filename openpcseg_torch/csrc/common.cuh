@@ -36,6 +36,8 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ __forceinline__ int ceil_div(int a, int b) {
+  return (a + b - 1) / b;
+}
 
 }  // namespace opcs

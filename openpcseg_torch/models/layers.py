@@ -1,19 +1,26 @@
-"""Sparse network building blocks (torch.nn), eval semantics.
+"""Sparse network building blocks (torch.nn).
 
 Counterpart of ``openpcseg_tpu/models/layers.py``: SparseConv,
-MaskedBatchNorm, BasicConvBlock, ResidualBlock and ``repeated_blocks``.
-Layers take their kernel maps and validity masks from a precomputed
-VoxelPyramid; they never build geometry themselves.
+MaskedBatchNorm, BasicConvBlock, ResidualBlock, ``repeated_blocks`` and
+dropout. Layers take their kernel maps and validity masks from a
+precomputed VoxelPyramid; they never build geometry themselves. BN uses
+batch statistics while the module is training (``module.train()``) and
+running statistics otherwise.
 
 Conv dispatch (the port's rewrite of ``layers.py:116-148``): each conv
-names its kind, and each kind has one wrapper that runs its plain version
-for a CPU tensor and its Hopper kernel for a CUDA tensor, for every Cin
-(the JAX package keeps Cin < 16 on XLA):
+names its kind, and each kind has one autograd Function whose forward and
+backward wrappers run their plain versions for a CPU tensor and their
+Hopper kernels for a CUDA tensor, for every Cin (the JAX package keeps
+Cin < 16 on XLA):
 
-    "subm" (3x3x3 submanifold)  -> ops.subm_conv.subm_conv  (K1)
-    "down" (k2/s2 strided)      -> ops.updown.down_conv     (K3)
-    "up"   (k2/s2 transposed)   -> ops.updown.up_conv       (K4)
-    1x1x1                       -> ops.sparse_conv.sparse_conv_1x1 (matmul)
+    "subm" (3x3x3 submanifold) -> ops.subm_conv.SubmConvFn (K1, K2)
+    "down" (k2/s2 strided)     -> ops.updown.DownConvFn    (K3, K6)
+    "up"   (k2/s2 transposed)  -> ops.updown.UpConvFn      (K4, K5)
+    1x1x1                      -> ops.sparse_conv.sparse_conv_1x1 (matmul)
+
+The strided and transposed kinds carry the transposed map their backward
+needs (``kmap_t``): a down conv the fine level's up map, an up conv the
+coarse level's down map; the submanifold kind reverses its own map.
 """
 from __future__ import annotations
 
@@ -24,14 +31,17 @@ import torch
 from torch import nn
 
 from ..ops.sparse_conv import sparse_conv_1x1
-from ..ops.subm_conv import subm_conv
-from ..ops.updown import down_conv, up_conv
+from ..ops.subm_conv import SubmConvFn
+from ..ops.updown import DownConvFn, UpConvFn
 
-_CONVS = {"subm": (27, subm_conv), "down": (8, down_conv), "up": (8, up_conv)}
+_CONVS = {"subm": (27, SubmConvFn), "down": (8, DownConvFn),
+          "up": (8, UpConvFn)}
 
 # flax variance_scaling(1.0, "fan_in", "truncated_normal"): the std of a
 # unit normal truncated to [-2, 2] is 0.87962566...
 _TRUNC_STD = 0.87962566103423978
+# EMA decay of the BN running statistics (torch momentum 0.1)
+_BN_DECAY = 0.9
 
 
 class SparseConv(nn.Module):
@@ -57,21 +67,30 @@ class SparseConv(nn.Module):
                               generator=generator)
 
     def forward(self, feats: torch.Tensor, kmap: Optional[torch.Tensor],
-                out_valid: torch.Tensor) -> torch.Tensor:
+                out_valid: torch.Tensor,
+                kmap_t: Optional[torch.Tensor] = None) -> torch.Tensor:
         cdt = self.compute_dtype
         if self.kind == "1x1":
             return sparse_conv_1x1(feats, self.weight, out_valid,
                                    compute_dtype=cdt)
-        out = _CONVS[self.kind][1](feats.to(cdt).contiguous(), self.weight,
-                                   kmap)
-        out = torch.where(out_valid[:, None], out, 0.0)
+        fn = _CONVS[self.kind][1]
+        args = (feats.to(cdt).contiguous(), self.weight, kmap)
+        if self.kind != "subm":
+            if kmap_t is None:
+                raise ValueError(f"a {self.kind} conv needs kmap_t, the "
+                                 "transposed map of its backward")
+            args += (kmap_t,)
+        out = torch.where(out_valid[:, None], fn.apply(*args), 0.0)
         return out.to(torch.promote_types(feats.dtype, cdt))
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over valid rows with running statistics (eval semantics,
-    torch BN eps 1e-5); padding rows come out zero. Batch statistics and
-    their cross-device sync come with the training slice."""
+    """BatchNorm over valid rows (torch BN eps 1e-5); padding rows come out
+    zero. Training (``openpcseg_tpu/models/layers.py:199-220``): float32
+    statistics over the valid rows only (count at least 1), the biased
+    variance to normalise, the unbiased one into the running estimate with
+    EMA decay 0.9 (torch momentum 0.1). Eval: the running statistics. The
+    cross-device sync of the statistics comes with data parallelism."""
 
     def __init__(self, c: int, eps: float = 1e-5):
         super().__init__()
@@ -82,11 +101,22 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(c))
 
     def forward(self, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
         if self.training:
-            raise NotImplementedError(
-                "MaskedBatchNorm: only eval (running statistics) is ported")
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean) * inv + self.bias
+            m = valid.float()[:, None]
+            cnt = m.sum().clamp(min=1.0)
+            mean = (xf * m).sum(0) / cnt
+            var = ((xf * xf * m).sum(0) / cnt - mean * mean).clamp(min=0.0)
+            with torch.no_grad():
+                unbiased = var * cnt / (cnt - 1.0).clamp(min=1.0)
+                self.running_mean.mul_(_BN_DECAY).add_(
+                    (1 - _BN_DECAY) * mean)
+                self.running_var.mul_(_BN_DECAY).add_(
+                    (1 - _BN_DECAY) * unbiased)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean) * inv + self.bias
         return torch.where(valid[:, None], y, 0.0).to(x.dtype)
 
 
@@ -99,8 +129,8 @@ class BasicConvBlock(nn.Module):
         self.conv = SparseConv(cin, cout, kind, compute_dtype)
         self.bn = MaskedBatchNorm(cout)
 
-    def forward(self, feats, kmap, out_valid):
-        return torch.relu(self.bn(self.conv(feats, kmap, out_valid),
+    def forward(self, feats, kmap, out_valid, kmap_t=None):
+        return torch.relu(self.bn(self.conv(feats, kmap, out_valid, kmap_t),
                                   out_valid))
 
 
@@ -130,6 +160,19 @@ class ResidualBlock(nn.Module):
 
 
 BLOCKS = {"ResBlock": ResidualBlock}
+
+
+def dropout(x: torch.Tensor, p: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with keep probability 1 - p, drawn from an explicit
+    generator (flax ``nn.Dropout``: kept entries scaled by 1 / (1 - p)).
+    The draws cannot match JAX's bit for bit; p = 0 is the identity."""
+    if p <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout with p > 0 needs a torch.Generator")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
 def repeated_blocks(block_cls, cin: int, planes: int, n: int,

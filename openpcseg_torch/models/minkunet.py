@@ -1,22 +1,23 @@
-"""MinkUNet: sparse 3D UNet segmentor (eval forward).
+"""MinkUNet: sparse 3D UNet segmentor.
 
 Counterpart of ``openpcseg_tpu/models/minkunet.py``: stem + 4 down stages
 (stride-2 conv + residual blocks) + 4 up stages (transposed conv + skip
 concat + blocks) + a float32 classifier over the devoxelized [z1, z2, z3]
 of levels 4, 2 and 0. Config keys: IN_FEATURE_DIM, NUM_LAYER, PLANES, cr,
-BLOCK. Dropout is the identity at eval and is not part of this module.
+BLOCK, DROPOUT_P (JAX default 0.3; dropout after x4 and y2 while training,
+drawn from the generator the caller passes).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
 
 from ..core.tensor import VoxelPyramid
 from .layers import (BLOCKS, BasicConvBlock, MaskedBatchNorm, SparseConv,
-                     repeated_blocks)
+                     dropout, repeated_blocks)
 
 
 class MinkUNet(nn.Module):
@@ -38,6 +39,7 @@ class MinkUNet(nn.Module):
               cfg.get("PLANES", [32, 32, 64, 128, 256, 256, 128, 96, 96])]
         cdt = compute_dtype
         self.compute_dtype = cdt
+        self.dropout_p = float(cfg.get("DROPOUT_P", 0.3))
 
         self.stem = nn.ModuleList([
             BasicConvBlock(self.in_dim, cs[0], "subm", cdt),
@@ -87,8 +89,11 @@ class MinkUNet(nn.Module):
             x = b(x, lvl.subm_kmap, lvl.valid)
         return x
 
-    def forward(self, voxel_feats: torch.Tensor,
-                pyr: VoxelPyramid) -> torch.Tensor:
+    def _dropout(self, x, generator):
+        return dropout(x, self.dropout_p, generator) if self.training else x
+
+    def forward(self, voxel_feats: torch.Tensor, pyr: VoxelPyramid,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         lv = pyr.levels
         x = voxel_feats[:, :self.in_dim].to(self.compute_dtype)
         for blk in self.stem:
@@ -96,20 +101,24 @@ class MinkUNet(nn.Module):
 
         feats = [x]
         for i in range(4):
-            coarse = lv[i + 1]
-            x = self.downs[i](x, coarse.down_kmap, coarse.valid)
+            fine, coarse = lv[i], lv[i + 1]
+            x = self.downs[i](x, coarse.down_kmap, coarse.valid,
+                              kmap_t=fine.up_kmap)
             x = self._run(self.down_blocks[i], x, coarse)
             feats.append(x)
         z = [pyr.devox[4].apply(x)]
+        x = self._dropout(x, generator)
 
         for i in range(4):
-            fine = lv[3 - i]
-            x = self.ups[i](x, fine.up_kmap, fine.valid)
+            coarse, fine = lv[4 - i], lv[3 - i]
+            x = self.ups[i](x, fine.up_kmap, fine.valid,
+                            kmap_t=coarse.down_kmap)
             x = torch.relu(self.up_bns[i](x, fine.valid))
             x = torch.cat([x, feats[3 - i]], dim=-1)
             x = self._run(self.up_blocks[i], x, fine)
             if i == 1:
                 z.append(pyr.devox[2].apply(x))
+                x = self._dropout(x, generator)
         z.append(pyr.devox[0].apply(x))
 
         logits = self.classifier(torch.cat(z, dim=-1).float())

@@ -1,11 +1,13 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 The sources live in ``openpcseg_torch/csrc`` (plain C ABI, no PyTorch
-headers). At first use on a CUDA tensor they are compiled with ``nvcc`` for
-``sm_90a`` into one shared library under ``build/openpcseg_torch/`` at the
-repository root, named by a hash of the sources so an edit forces a
-rebuild, and loaded with ctypes. Nothing here runs at import time, so the
-CPU tests import every module without a compiler.
+headers). At first use on a CUDA tensor each ``.cu`` is compiled with
+``nvcc`` for ``sm_90a`` to an object file, all sources at once in parallel,
+and the objects are linked into one shared library under
+``build/openpcseg_torch/`` at the repository root, named by a hash of the
+sources so an edit forces a rebuild, and loaded with ctypes. Nothing here
+runs at import time, so the CPU tests import every module without a
+compiler.
 
 A failed build raises; no wrapper falls back to its plain version for a
 CUDA tensor.
@@ -22,6 +24,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -29,10 +32,14 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "openpcseg_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {"subm": 0, "down": 0, "up": 0, "devox": 0}
-PLAIN_ON_CUDA = {"subm": 0, "down": 0, "up": 0, "devox": 0}
+# forward kernels (K1, K3, K4, K7), then the backward ones: the dfeats
+# passes of K2 / K6 / K5, the shared weight-gradient kernel, and K8
+COUNTERS = ("subm", "down", "up", "devox", "subm_bwd", "down_bwd", "up_bwd",
+            "dw", "devox_bwd")
+LAUNCHES = dict.fromkeys(COUNTERS, 0)
+PLAIN_ON_CUDA = dict.fromkeys(COUNTERS, 0)
 
 # name -> number of pointer arguments before the int arguments
 _SIGNATURES = {
@@ -40,6 +47,10 @@ _SIGNATURES = {
     "opcs_parent_gemm_bf16": (5, 3),   # src, w, parent, parity, out | n_out, cin, cout
     "opcs_devox_bf16": (4, 2),         # vox, idx, w, out | n, c
     "opcs_devox_f32": (4, 2),
+    # a, ia, b, ib, partial, out | n, K, ca, cb, rows_per_chunk, n_chunks
+    "opcs_gather_dw_bf16": (6, 6),
+    "opcs_devox_bwd_bf16": (5, 2),     # dout, ptr, point, w, dvox | n_vox, c
+    "opcs_devox_bwd_f32": (5, 2),
 }
 
 _LIB = None
@@ -73,8 +84,18 @@ def _find_nvcc() -> str:
     return found
 
 
+def _nvcc(cmd: list) -> subprocess.CompletedProcess:
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
+            f"{res.stdout}\n{res.stderr}")
+    return res
+
+
 def build() -> Path:
-    """Compile csrc/*.cu into one shared library (cached by source hash)."""
+    """Compile csrc/*.cu (one nvcc per source, all at once) and link them
+    into one shared library (cached by source hash)."""
     srcs = _sources()
     h = hashlib.sha256()
     for s in srcs + sorted(CSRC.glob("*.cuh")):
@@ -85,19 +106,24 @@ def build() -> Path:
     if out.exists():
         BUILD_INFO.update(path=str(out), seconds=0.0, cached=True)
         return out
+    nvcc = _find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in srcs]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    with ThreadPoolExecutor(max_workers=len(srcs)) as pool:
+        compiled = list(pool.map(
+            _nvcc, [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                    for s, o in zip(srcs, objs)]))
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    _nvcc([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+           "-o", str(tmp), *map(str, objs)])
     secs = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}")
+    for o in objs:
+        o.unlink()
     os.replace(tmp, out)
     BUILD_INFO.update(path=str(out), seconds=secs, cached=False,
-                      ptxas=res.stderr)
+                      ptxas="".join(r.stderr for r in compiled))
     return out
 
 

@@ -10,6 +10,7 @@ import pytest
 import torch
 import yaml
 
+from openpcseg_torch.core.tensor import DevoxTable
 from openpcseg_torch.ops import cuda_lib, devox, subm_conv, updown
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -25,6 +26,7 @@ SLICE_MODULES = [
     "openpcseg_torch.models.layers", "openpcseg_torch.models.minkunet",
     "openpcseg_torch.utils.metrics", "openpcseg_torch.utils.convert",
     "openpcseg_torch.engine.task", "openpcseg_torch.data.raycast",
+    "openpcseg_torch.losses", "openpcseg_torch.optim",
 ]
 
 
@@ -70,17 +72,27 @@ def _flag(t):
 def _calls(rng):
     """One call of each wrapper, with CUDA-flagged kernel-ready operands."""
     f = _flag(torch.zeros(16, 8, dtype=torch.bfloat16))
+    d = _flag(torch.zeros(16, 8))
     km27 = torch.full((27, 16), -1, dtype=torch.int32)
     km8 = torch.full((8, 16), -1, dtype=torch.int32)
     w27 = torch.as_tensor(rng.normal(size=(27, 8, 8)), dtype=torch.float32)
     w8 = torch.as_tensor(rng.normal(size=(8, 8, 8)), dtype=torch.float32)
     idx = torch.full((8, 16), -1, dtype=torch.int32)
     wts = torch.zeros(8, 16)
+    tbl = DevoxTable(idx, wts, num_voxels=16,
+                     t_ptr=torch.zeros(17, dtype=torch.int32),
+                     t_point=torch.zeros(128, dtype=torch.int32),
+                     t_weight=torch.zeros(128))
     return {
         "subm": lambda: subm_conv.subm_conv(f, w27, km27),
         "down": lambda: updown.down_conv(f, w8, km8),
         "up": lambda: updown.up_conv(f, w8, km8),
         "devox": lambda: devox.devoxelize(f, idx, wts),
+        "subm_bwd": lambda: subm_conv.subm_conv_bwd(d, f, w27, km27),
+        "down_bwd": lambda: updown.down_conv_bwd(d, f, w8, km8, km8),
+        "up_bwd": lambda: updown.up_conv_bwd(d, f, w8, km8, km8),
+        "dw": lambda: subm_conv.gather_dw(f, km27, f, None),
+        "devox_bwd": lambda: devox.devoxelize_bwd(f, tbl),
     }
 
 
@@ -96,7 +108,11 @@ def no_library(monkeypatch, tmp_path):
     cuda_lib.reset_counts()
 
 
-@pytest.mark.parametrize("name", ["subm", "down", "up", "devox"])
+WRAPPERS = ["subm", "down", "up", "devox", "subm_bwd", "down_bwd", "up_bwd",
+            "dw", "devox_bwd"]
+
+
+@pytest.mark.parametrize("name", WRAPPERS)
 def test_wrapper_raises_without_nvcc(no_library, monkeypatch, rng, name):
     def no_nvcc():
         raise RuntimeError("nvcc not found")
@@ -107,7 +123,7 @@ def test_wrapper_raises_without_nvcc(no_library, monkeypatch, rng, name):
     assert sum(cuda_lib.PLAIN_ON_CUDA.values()) == 0
 
 
-@pytest.mark.parametrize("name", ["subm", "down", "up", "devox"])
+@pytest.mark.parametrize("name", WRAPPERS)
 def test_wrapper_raises_when_nvcc_fails(no_library, monkeypatch, rng, name):
     monkeypatch.setattr(cuda_lib, "_find_nvcc", lambda: "nvcc")
     monkeypatch.setattr(
@@ -136,6 +152,7 @@ def test_check_cuda_rejects_what_the_kernels_do_not_take():
 def test_build_flags_target_sm90a():
     assert "arch=compute_90a,code=sm_90a" in cuda_lib.NVCC_FLAGS
     srcs = {p.name for p in cuda_lib._sources()}
-    assert srcs == {"gather_gemm.cu", "parent_gemm.cu", "devox.cu"}
+    assert srcs == {"gather_gemm.cu", "parent_gemm.cu", "devox.cu",
+                    "gather_dw.cu"}
     assert np.all([(cuda_lib.CSRC / s).read_text().count("OPCS_API") >= 1
                    for s in srcs])

@@ -9,7 +9,9 @@ Shapes come from the port's own pyramid of an 8192-point ray-cast scan;
 features are zero on padding rows, as every caller keeps them (the plain
 subm version takes the identity centre offset without a gather). Operands
 are bf16, both sides sum in float32, so they differ by summation order
-only: max|kernel - plain| <= 2e-2 * max|plain|.
+only: max|kernel - plain| <= 2e-2 * max|plain|. The backward kernels (K2,
+K5, K6 and the shared dW kernel, K8) are checked per output, dfeats and dW
+apart, and must repeat bit for bit: none of them uses atomics.
 """
 import pytest
 import torch
@@ -17,6 +19,7 @@ import torch
 from openpcseg_torch.data.raycast import raycast_batch
 from openpcseg_torch.engine.task import SegTask, batch_to_device
 from openpcseg_torch.ops import cuda_lib, devox, subm_conv, updown
+from openpcseg_torch.ops.voxelize import _devox_bwd
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-2
@@ -89,3 +92,53 @@ def test_devox_kernel(pyr, level, c):
     x = _feats(pyr.levels[level], c, g)
     _close(devox.devoxelize(x, t.idx, t.weights),
            devox.devoxelize_plain(x, t.idx, t.weights))
+
+
+def _bwd_check(kern, plain, args):
+    """Each output against the plain version, and bit-identical twice."""
+    got, again, ref = kern(*args), kern(*args), plain(*args)
+    for g, a, r in zip(got, again, ref):
+        _close(g, r)
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("level,cin,cout", [(0, 4, 32), (1, 96, 96),
+                                            (3, 384, 256)])
+def test_subm_backward_kernels(pyr, level, cin, cout):
+    g = torch.Generator(device="cuda").manual_seed(4)
+    lv = pyr.levels[level]
+    args = (_feats(lv, cout, g).float(), _feats(lv, cin, g),
+            _rand(27, cin, cout, gen=g).float(), lv.subm_kmap)
+    n = dict(cuda_lib.LAUNCHES)
+    _bwd_check(subm_conv.subm_conv_bwd, subm_conv.subm_conv_bwd_plain, args)
+    assert cuda_lib.LAUNCHES["subm_bwd"] == n["subm_bwd"] + 2
+    assert cuda_lib.LAUNCHES["dw"] == n["dw"] + 2
+
+
+@pytest.mark.parametrize("level,c", [(1, 32), (4, 128)])
+def test_down_backward_kernels(pyr, level, c):
+    g = torch.Generator(device="cuda").manual_seed(5)
+    fine, coarse = pyr.levels[level - 1], pyr.levels[level]
+    args = (_feats(coarse, c, g).float(), _feats(fine, c, g),
+            _rand(8, c, c, gen=g).float(), coarse.down_kmap, fine.up_kmap)
+    _bwd_check(updown.down_conv_bwd, updown.down_conv_bwd_plain, args)
+
+
+@pytest.mark.parametrize("level,cin,cout", [(3, 256, 256), (0, 96, 96)])
+def test_up_backward_kernels(pyr, level, cin, cout):
+    g = torch.Generator(device="cuda").manual_seed(6)
+    fine, coarse = pyr.levels[level], pyr.levels[level + 1]
+    args = (_feats(fine, cout, g).float(), _feats(coarse, cin, g),
+            _rand(8, cin, cout, gen=g).float(), fine.up_kmap,
+            coarse.down_kmap)
+    _bwd_check(updown.up_conv_bwd, updown.up_conv_bwd_plain, args)
+
+
+@pytest.mark.parametrize("level,c", [(4, 256), (2, 128)])
+def test_devox_backward_kernel(pyr, level, c):
+    g = torch.Generator(device="cuda").manual_seed(7)
+    t = pyr.devox[level]
+    d = _rand(t.idx.shape[1], c, gen=g)
+    got, again = devox.devoxelize_bwd(d, t), devox.devoxelize_bwd(d, t)
+    _close(got, _devox_bwd(d, t.idx, t.weights, t.num_voxels))
+    assert got.dtype == d.dtype and torch.equal(got, again)
