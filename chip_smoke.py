@@ -17,8 +17,11 @@ through eight hand-written CUDA kernels (openpcseg_torch/csrc):
 Phases, in order (any failure exits non-zero and prints no result line):
   1. the card's name and power limit; TF32 off for matmuls and cuDNN;
   2. build the kernels with nvcc (sm_90a) from the checkout's sources;
-  3. kernel phase: each forward kernel against its plain PyTorch version
-     on the card, at the shapes a real pyramid of ray-cast scan 0 gives it;
+  3. kernel phase: the device time of the parity plans (K4's and K6's
+     tiling) and of the whole voxelize + geometry pass under
+     torch.profiler; then each forward kernel against its plain PyTorch
+     version on the card, at the shapes a real pyramid of ray-cast scan 0
+     gives it, twice, bit for bit (K4: parentless rows exactly 0);
   4. serving phase: SegTask answers REQUESTS requests (eval_step +
      predict_step each), with voxel_overflow 0, hist summing to the valid
      point count, every forward kernel launched and no plain version run
@@ -28,7 +31,7 @@ Phases, in order (any failure exits non-zero and prints no result line):
   6. a torch.profiler window over one request (device time per kernel);
   7. backward-kernel phase: each backward kernel against its plain version
      on the card, dfeats and dW apart, at the same pyramid's shapes, and
-     twice, bit for bit;
+     twice, bit for bit; K6's dfeats pass (the parent gather) also alone;
   8. training phase: TRAIN_STEPS SegTask.train_steps on the repeated scan
      of seed 1, each with a finite loss and gradient norm, voxel_overflow
      0, every forward and backward kernel launched and no plain version on
@@ -184,11 +187,21 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def parentless_rows(plan):
+    """Fine rows without a parent (the plan's group 8): the parent gather
+    must write exact zeros there."""
+    return plan.dst_rows[int(plan.group_offsets[8]):].long()
+
+
 def kernel_cases(pyr, gen):
-    """(kernel, label, wrapper, plain, args) at main-path shapes: every
-    channel pair the mk34 forward gives each kernel, on the levels where it
-    gives it, with seeded bf16 features (zero on padding rows)."""
+    """(kernel, label, wrapper, plain, args, zero_rows) at main-path
+    shapes: every channel pair the mk34 forward gives each kernel, on the
+    levels where it gives it, with seeded bf16 features (zero on padding
+    rows). zero_rows: output rows that must be exactly 0, or None."""
     from openpcseg_torch.ops import devox, subm_conv, updown
+
+    def up_plain(x, w, km, plan):
+        return updown.up_conv_plain(x, w, km)
 
     def feats(level, c):
         lv = pyr.levels[level]
@@ -204,23 +217,46 @@ def kernel_cases(pyr, gen):
         args = (feats(level, cin), weight(27, cin, cout),
                 pyr.levels[level].subm_kmap)
         cases.append(("K1_subm_conv", f"L{level} {cin}->{cout}",
-                      subm_conv.subm_conv, subm_conv.subm_conv_plain, args))
+                      subm_conv.subm_conv, subm_conv.subm_conv_plain, args,
+                      None))
     for level, c in DOWNS:
         args = (feats(level - 1, c), weight(8, c, c),
                 pyr.levels[level].down_kmap)
         cases.append(("K3_down_conv", f"L{level - 1}->L{level} {c}->{c}",
-                      updown.down_conv, updown.down_conv_plain, args))
+                      updown.down_conv, updown.down_conv_plain, args, None))
     for level, cin, cout in UPS:
+        plan = pyr.levels[level + 1].parity_plan
         args = (feats(level + 1, cin), weight(8, cin, cout),
-                pyr.levels[level].up_kmap)
+                pyr.levels[level].up_kmap, plan)
         cases.append(("K4_up_conv", f"L{level + 1}->L{level} {cin}->{cout}",
-                      updown.up_conv, updown.up_conv_plain, args))
+                      updown.up_conv, up_plain, args, parentless_rows(plan)))
     for level, c in DEVOX:
         tbl = pyr.devox[level]
         args = (feats(level, c), tbl.idx, tbl.weights)
         cases.append(("K7_devoxelize", f"L{level} C={c}",
-                      devox.devoxelize, devox.devoxelize_plain, args))
+                      devox.devoxelize, devox.devoxelize_plain, args, None))
     return cases
+
+
+def times(kern, plain, args, on_device: bool) -> dict:
+    """CUDA-event ms per call of the kernel's wrapper and of its plain
+    version; with on_device (the parent gather, whose wrapper's host time
+    can exceed its kernel's) also their device ms under the profiler."""
+    t = dict(ms=cuda_ms(lambda: kern(*args), KERNEL_REPS),
+             plain_ms=cuda_ms(lambda: plain(*args), KERNEL_REPS))
+    if on_device:
+        t.update(device_ms=device_ms(lambda: kern(*args), KERNEL_REPS),
+                 plain_device_ms=device_ms(lambda: plain(*args),
+                                           KERNEL_REPS))
+    return t
+
+
+def times_text(row) -> str:
+    text = f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms"
+    if "device_ms" in row:
+        text += (f" (device {row['device_ms']:.4f} ms plain "
+                 f"{row['plain_device_ms']:.4f} ms)")
+    return text
 
 
 def kernel_phase(task, gen, report):
@@ -232,27 +268,57 @@ def kernel_phase(task, gen, report):
     counts = pyr.level_counts.tolist()
     log(f"[kernels] pyramid of scan {SEED}: voxels per level {counts}, "
         f"caps {task.caps}")
+    plan_phase(task, b, pyr, report)
     rows = []
-    for name, label, kern, plain, args in kernel_cases(pyr, gen):
-        got = kern(*args).float()
+    for name, label, kern, plain, args, zero_rows in kernel_cases(pyr, gen):
+        got, again = kern(*args), kern(*args)
         ref = plain(*args).float()
         torch.cuda.synchronize()
+        same = bool(torch.equal(got, again))
+        got = got.float()
         err = float((got - ref).abs().max())
         scale = float(ref.abs().max())
-        ok = bool(np.isfinite(err)) and err <= KERNEL_TOL * max(scale, 1e-6)
-        ms = cuda_ms(lambda: kern(*args), KERNEL_REPS)
-        plain_ms = cuda_ms(lambda: plain(*args), KERNEL_REPS)
-        rows.append(dict(kernel=name, shape=label, max_abs_err=err,
-                         max_abs_ref=scale, ms=ms, plain_ms=plain_ms, ok=ok))
+        zeros = zero_rows is None or bool((got[zero_rows] == 0).all())
+        ok = (bool(np.isfinite(err)) and err <= KERNEL_TOL * max(scale, 1e-6)
+              and same and zeros)
+        row = dict(kernel=name, shape=label, max_abs_err=err,
+                   max_abs_ref=scale, bit_identical=same,
+                   parentless_zero=zeros, ok=ok,
+                   **times(kern, plain, args, zero_rows is not None))
+        rows.append(row)
         log(f"[kernels] {name:14s} {label:18s} max|err| {err:.3e} "
-            f"(max|ref| {scale:.3e}) kernel {ms:.4f} ms plain "
-            f"{plain_ms:.4f} ms {'ok' if ok else 'MISMATCH'}")
+            f"(max|ref| {scale:.3e}) repeat "
+            f"{'bit-identical' if same else 'DIFFERS'}"
+            f"{'' if zeros else ' NONZERO parentless rows'} "
+            f"{times_text(row)} {'ok' if ok else 'MISMATCH'}")
     report["kernel_cases"] = rows
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise SystemExit(f"kernel phase: {len(bad)} case(s) disagree with "
-                         f"their plain versions: {bad}")
+                         f"their plain versions or do not repeat: {bad}")
     return rows
+
+
+def plan_phase(task, b, pyr, report):
+    """Device time of the parity plans (K4's and K6's tiling), which
+    build_pyramid builds once per step and the kernel times below leave
+    out, beside that of the whole voxelize + geometry pass."""
+    from openpcseg_torch.core.geometry import build_parity_plan
+
+    def plans():
+        return [build_parity_plan(pyr.levels[l].down_kmap,
+                                  pyr.levels[l - 1].capacity)
+                for l in range(1, len(pyr.levels))]
+    plan_ms = profile_window("parity_plans", plans, report)
+    call_ms = cuda_ms(plans, KERNEL_REPS)
+    pre_ms = profile_window("preprocess", lambda: task.preprocess(b), report)
+    groups = [lv.parity_plan.group_offsets.tolist() for lv in pyr.levels[1:]]
+    log(f"[plans] parity plans of levels 1-4: {plan_ms:.4f} ms of device "
+        f"time ({call_ms:.4f} ms per call by CUDA events, host enqueue "
+        f"included), of {pre_ms:.4f} ms for voxelize + geometry; group "
+        f"offsets per level {groups}")
+    report.update(parity_plan_device_ms=plan_ms, parity_plan_call_ms=call_ms,
+                  preprocess_device_ms=pre_ms, parity_plan_groups=groups)
 
 
 def serving_phase(task, report):
@@ -334,21 +400,13 @@ def reference_phase(report):
                          "CPU float32 reference")
 
 
-def profile_window(label, step, report):
-    """Device time per kernel over one call of step() under torch.profiler
-    (after one unprofiled call); returns the total device kernel ms. Only
-    device events count, and no annotation: the host-side ranges (autograd
-    Functions, aten ops) and the device-side copies of annotated ranges
-    (the optimizer step) carry the time of their kernels again."""
+def _device_rows(prof):
+    """(kernel, launches, device ms) of every device kernel in a profile.
+    Only device events count, and no annotation: the host-side ranges
+    (autograd Functions, aten ops) and the device-side copies of annotated
+    ranges (the optimizer step) carry the time of their kernels again."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step()
-        torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
         dev_us = getattr(e, "device_time_total", None)
@@ -357,6 +415,36 @@ def profile_window(label, step, report):
         if (e.device_type == DeviceType.CUDA and dev_us > 0
                 and not getattr(e, "is_user_annotation", False)):
             rows.append((e.key, e.count, dev_us / 1e3))
+    return rows
+
+
+def _profiled(fn, calls):
+    """torch.profiler over `calls` calls of fn(), after one unprofiled
+    call; returns the profile."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return prof
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device kernel time per call of fn() under torch.profiler. CUDA
+    events time a call from its first enqueue to its last kernel's end, so
+    where the host's enqueue takes longer than the kernels, as for the
+    parent gather, they read the host."""
+    return sum(r[2] for r in _device_rows(_profiled(fn, reps))) / reps
+
+
+def profile_window(label, step, report):
+    """Device time per kernel over one call of step() under torch.profiler
+    (after one unprofiled call); returns the total device kernel ms."""
+    rows = _device_rows(_profiled(step, 1))
     if not rows:
         raise SystemExit(f"profiler: no device time recorded for {label}")
     rows.sort(key=lambda r: -r[2])
@@ -380,11 +468,25 @@ def profile_phase(task, report):
 
 
 def backward_cases(pyr, gen):
-    """(kernel, label, wrapper, plain, args) of each backward kernel at the
-    shapes the mk34 training step gives it: upstream gradients in float32
-    (zero on padding rows, as the masked forward leaves them), saved bf16
-    activations, float32 weights."""
+    """(kernel, label, wrapper, plain, args, zero_rows) of each backward
+    kernel at the shapes the mk34 training step gives it: upstream
+    gradients in float32 (zero on padding rows, as the masked forward
+    leaves them), saved bf16 activations, float32 weights. K6 also runs its
+    dfeats pass alone (label "... dfeats"), the parent gather with W^T
+    against the plain dfeats."""
     from openpcseg_torch.ops import devox, subm_conv, updown
+    from openpcseg_torch.ops.sparse_conv import _conv_apply
+
+    def down_bwd_plain(dout, feats, w, kmap, up_kmap, plan):
+        return updown.down_conv_bwd_plain(dout, feats, w, kmap, up_kmap)
+
+    def dfeats(dout, w, up_kmap, plan):
+        return (updown.parent_gemm(dout.to(torch.bfloat16).contiguous(),
+                                   w.transpose(1, 2), plan, "down_bwd"),)
+
+    def dfeats_plain(dout, w, up_kmap, plan):
+        return (_conv_apply(dout, w.transpose(1, 2), up_kmap, None,
+                            torch.bfloat16),)
 
     def rand(level, c, dtype):
         lv = pyr.levels[level]
@@ -403,21 +505,26 @@ def backward_cases(pyr, gen):
                 weight(27, cin, cout), lv.subm_kmap)
         cases.append(("K2_subm_conv_bwd", f"L{level} {cin}->{cout}",
                       subm_conv.subm_conv_bwd, subm_conv.subm_conv_bwd_plain,
-                      args))
+                      args, None))
     for level, c in DOWNS:
         fine, coarse = pyr.levels[level - 1], pyr.levels[level]
-        args = (rand(level, c, f32), rand(level - 1, c, bf),
-                weight(8, c, c), coarse.down_kmap, fine.up_kmap)
-        cases.append(("K6_down_conv_bwd", f"L{level - 1}->L{level} {c}->{c}",
-                      updown.down_conv_bwd, updown.down_conv_bwd_plain,
-                      args))
+        plan = coarse.parity_plan
+        d, w = rand(level, c, f32), weight(8, c, c)
+        label = f"L{level - 1}->L{level} {c}->{c}"
+        args = (d, rand(level - 1, c, bf), w, coarse.down_kmap, fine.up_kmap,
+                plan)
+        cases.append(("K6_down_conv_bwd", label, updown.down_conv_bwd,
+                      down_bwd_plain, args, None))
+        cases.append(("K6_down_conv_bwd", label + " dfeats", dfeats,
+                      dfeats_plain, (d, w, fine.up_kmap, plan),
+                      parentless_rows(plan)))
     for level, cin, cout in UPS:
         fine, coarse = pyr.levels[level], pyr.levels[level + 1]
         args = (rand(level, cout, f32), rand(level + 1, cin, bf),
                 weight(8, cin, cout), fine.up_kmap, coarse.down_kmap)
         cases.append(("K5_up_conv_bwd", f"L{level + 1}->L{level} "
                       f"{cin}->{cout}", updown.up_conv_bwd,
-                      updown.up_conv_bwd_plain, args))
+                      updown.up_conv_bwd_plain, args, None))
     for level, c in DEVOX:
         tbl = pyr.devox[level]
         d = torch.randn(tbl.idx.shape[1], c, device="cuda", generator=gen)
@@ -425,20 +532,22 @@ def backward_cases(pyr, gen):
         cases.append(("K8_devoxelize_bwd", f"L{level} C={c}",
                       lambda *a: (devox.devoxelize_bwd(*a),),
                       lambda *a: (devox.devoxelize_bwd_plain(*a),),
-                      (d, tbl)))
+                      (d, tbl), None))
     return cases
 
 
 def backward_kernel_phase(task, gen, report):
     """Each backward kernel against its plain version, per output, and a
-    bit-identical repeat; CUDA-event times of the whole backward."""
+    bit-identical repeat; CUDA-event times of the whole backward (and of
+    K6's dfeats pass alone)."""
     from openpcseg_torch.data.raycast import raycast_batch
     from openpcseg_torch.engine.task import batch_to_device
 
     b = batch_to_device(raycast_batch(SEED, 1, cap=N_POINTS), "cuda")
     _, pyr = task.preprocess(b)
     rows = []
-    for name, label, kern, plain, args in backward_cases(pyr, gen):
+    for name, label, kern, plain, args, zero_rows in backward_cases(pyr,
+                                                                    gen):
         got, again, ref = kern(*args), kern(*args), plain(*args)
         torch.cuda.synchronize()
         errs, scales, same = [], [], True
@@ -446,23 +555,24 @@ def backward_kernel_phase(task, gen, report):
             errs.append(float((g.float() - r.float()).abs().max()))
             scales.append(float(r.float().abs().max()))
             same = same and bool(torch.equal(g, a))
-        ok = same and all(np.isfinite(e) and e <= KERNEL_TOL * max(sc, 1e-6)
-                          for e, sc in zip(errs, scales))
-        ms = cuda_ms(lambda: kern(*args), KERNEL_REPS)
-        plain_ms = cuda_ms(lambda: plain(*args), KERNEL_REPS)
-        rows.append(dict(kernel=name, shape=label, max_abs_err=max(errs),
-                         errs=errs, max_abs_ref=scales,
-                         max_rel_err=max(e / max(sc, 1e-30)
-                                         for e, sc in zip(errs, scales)),
-                         bit_identical=same, ms=ms, plain_ms=plain_ms,
-                         ok=ok))
+        zeros = zero_rows is None or bool((got[0][zero_rows] == 0).all())
+        ok = same and zeros and all(
+            np.isfinite(e) and e <= KERNEL_TOL * max(sc, 1e-6)
+            for e, sc in zip(errs, scales))
+        row = dict(kernel=name, shape=label, max_abs_err=max(errs),
+                   errs=errs, max_abs_ref=scales,
+                   max_rel_err=max(e / max(sc, 1e-30)
+                                   for e, sc in zip(errs, scales)),
+                   bit_identical=same, parentless_zero=zeros, ok=ok,
+                   **times(kern, plain, args, zero_rows is not None))
+        rows.append(row)
         outs = " ".join(f"{o} {e:.3e}/{sc:.3e}" for o, e, sc in
-                        zip(("dfeats", "dW") if len(errs) == 2 else
-                            ("dvox",), errs, scales))
-        log(f"[bwd] {name:17s} {label:18s} max|err|/max|ref| {outs} "
-            f"repeat {'bit-identical' if same else 'DIFFERS'} kernel "
-            f"{ms:.4f} ms plain {plain_ms:.4f} ms "
-            f"{'ok' if ok else 'MISMATCH'}")
+                        zip(("dvox",) if name.startswith("K8") else
+                            ("dfeats", "dW"), errs, scales))
+        log(f"[bwd] {name:17s} {label:25s} max|err|/max|ref| {outs} "
+            f"repeat {'bit-identical' if same else 'DIFFERS'}"
+            f"{'' if zeros else ' NONZERO parentless rows'} "
+            f"{times_text(row)} {'ok' if ok else 'MISMATCH'}")
     report["backward_cases"] = rows
     bad = [r for r in rows if not r["ok"]]
     if bad:
@@ -576,6 +686,36 @@ def train_reference_phase(report):
                          "the CPU float32 reference")
 
 
+def kernel_report(rows, launches):
+    """The kernels JSON line: per kernel its launches on the main path and
+    the case with the slowest plain version; K6 also its dfeats pass alone
+    (the parent gather), K4 and that pass their device times too."""
+    kernels = []
+    for name, meta in KERNELS.items():
+        mine = [r for r in rows if r["kernel"] == name]
+        whole = [r for r in mine if not r["shape"].endswith(" dfeats")]
+        heavy = max(whole, key=lambda r: r["plain_ms"])
+        row = dict(
+            name=name, route=meta["route"], source=meta["source"],
+            replaces=meta["replaces"], launches=launches[meta["counter"]],
+            max_abs_err=max(r["max_abs_err"] for r in mine),
+            ms=heavy["ms"], plain_ms=heavy["plain_ms"], shape=heavy["shape"])
+        row.update({k: heavy[k] for k in ("device_ms", "plain_device_ms")
+                    if k in heavy})
+        if "dfeats_source" in meta:
+            row.update(dfeats_source=meta["dfeats_source"],
+                       dw_launches=launches["dw"])
+        part = [r for r in mine if r["shape"].endswith(" dfeats")]
+        if part:   # K6: its dfeats pass (the parent gather) alone
+            h = max(part, key=lambda r: r["plain_ms"])
+            row.update(dfeats_ms=h["ms"], dfeats_plain_ms=h["plain_ms"],
+                       dfeats_device_ms=h["device_ms"],
+                       dfeats_plain_device_ms=h["plain_device_ms"],
+                       dfeats_shape=h["shape"])
+        kernels.append(row)
+    return kernels
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--report", type=Path,
@@ -622,19 +762,7 @@ def main() -> int:
                      if k not in FWD_COUNTERS})
     train_reference_phase(report)
 
-    kernels = []
-    for name, meta in KERNELS.items():
-        mine = [r for r in rows if r["kernel"] == name]
-        heavy = max(mine, key=lambda r: r["plain_ms"])
-        row = dict(
-            name=name, route=meta["route"], source=meta["source"],
-            replaces=meta["replaces"], launches=launches[meta["counter"]],
-            max_abs_err=max(r["max_abs_err"] for r in mine),
-            ms=heavy["ms"], plain_ms=heavy["plain_ms"], shape=heavy["shape"])
-        if "dfeats_source" in meta:
-            row.update(dfeats_source=meta["dfeats_source"],
-                       dw_launches=launches["dw"])
-        kernels.append(row)
+    kernels = kernel_report(rows, launches)
     args.report.parent.mkdir(parents=True, exist_ok=True)
     args.report.write_text(json.dumps(report, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -14,7 +14,10 @@ import torch
 from ..ops.coords import Keys, lookup_keys_z3, make_keys
 from ..ops.kmap import _self_z_neighbors, build_downsample, build_subm_kmap
 from ..ops.voxelize import corner_offsets, devox_transpose_table
-from .tensor import DevoxTable, PointBuffer, SparseLevel, VoxelPyramid
+from .tensor import (DevoxTable, ParityPlan, PointBuffer, SparseLevel,
+                     VoxelPyramid)
+
+PARITY_TILE_ROWS = 64   # rows per tile of csrc/parent_gemm.cu (its BM)
 
 
 def _corner_table(lvl: SparseLevel) -> torch.Tensor:
@@ -73,6 +76,35 @@ def _updown_from_inverse(fine: SparseLevel, coarse: SparseLevel,
     return out[:8 * n_c].reshape(8, n_c)
 
 
+def build_parity_plan(down_kmap: torch.Tensor, n_fine: int,
+                      tile_rows: int = PARITY_TILE_ROWS) -> ParityPlan:
+    """Group a coarse level's down map [8, N_coarse] (fine row per (parity,
+    coarse row), -1 miss) by parity. Read row-major, its hits are the fine
+    rows ordered by (parity, coarse row): each of the `n_fine` fine rows is
+    keyed by the row-major index of its hit (no hit: 8 * N_coarse, group
+    8) and sorted stably; binary searches find the group bounds, as in
+    ``devox_transpose_table``. Fixed shapes on the device, no host sync."""
+    k, n_c = down_kmap.shape
+    dev = down_kmap.device
+    miss = k * n_c
+    flat = down_kmap.reshape(-1).long()
+    key = torch.full((n_fine + 1,), miss, dtype=torch.int32, device=dev)
+    key.scatter_(0, torch.where(flat >= 0, flat, n_fine),   # misses: a dump
+                 torch.arange(miss, dtype=torch.int32, device=dev))
+    key, dst = torch.sort(key[:n_fine], stable=True)
+    starts = torch.searchsorted(
+        key, torch.arange(0, miss + 1, n_c, dtype=torch.int32, device=dev),
+        out_int32=True)
+    group_off = torch.cat([starts, starts.new_full((1,), n_fine)])
+    tiles = (group_off.diff() + tile_rows - 1) // tile_rows
+    return ParityPlan(
+        src_rows=torch.where(key < miss, key % n_c, -1),
+        dst_rows=dst.to(torch.int32), group_offsets=group_off,
+        tile_offsets=torch.cat([tiles.new_zeros(1),
+                                tiles.cumsum(0, dtype=torch.int32)]),
+        tile_rows=tile_rows, max_tiles=-(-n_fine // tile_rows) + k + 1)
+
+
 def build_pyramid(coords0: torch.Tensor, valid0: torch.Tensor,
                   caps: Sequence[int], *, level0_keys: Keys,
                   devox_levels: Sequence[int] = ()) -> VoxelPyramid:
@@ -98,6 +130,8 @@ def build_pyramid(coords0: torch.Tensor, valid0: torch.Tensor,
         if l >= 1:
             lvl.down_kmap = _updown_from_inverse(levels[l - 1], lvl,
                                                  inverses[l], "down")
+            lvl.parity_plan = build_parity_plan(lvl.down_kmap,
+                                                levels[l - 1].capacity)
         if l + 1 < num_levels:
             lvl.up_kmap = _updown_from_inverse(lvl, levels[l + 1],
                                                inverses[l + 1], "up")

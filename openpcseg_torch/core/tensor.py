@@ -16,6 +16,28 @@ from ..ops.coords import Keys
 
 
 @dataclass
+class ParityPlan:
+    """The k2/s2 pairs of one coarse level grouped by parity, for the
+    parent-gather kernel (csrc/parent_gemm.cu: K4 and K6's dfeats).
+
+    Slot s pairs fine row ``dst_rows[s]`` with coarse row ``src_rows[s]``.
+    Slots ``[group_offsets[p], group_offsets[p + 1])`` hold parity p
+    (p < 8, kernel_offsets(2) order), both row lists ascending; group 8
+    holds the fine rows without a parent (``src_rows`` -1), whose output
+    rows are zero. Every fine row has exactly one slot. Group g is cut into
+    tiles of ``tile_rows`` slots, numbered from ``tile_offsets[g]``;
+    ``tile_offsets[9]`` tiles are used of the ``max_tiles`` the kernel is
+    launched with (a bound from the capacity, so no host sync)."""
+
+    src_rows: torch.Tensor       # [N_fine] int32 coarse row (-1: no parent)
+    dst_rows: torch.Tensor       # [N_fine] int32 fine row
+    group_offsets: torch.Tensor  # [10] int32
+    tile_offsets: torch.Tensor   # [10] int32
+    tile_rows: int
+    max_tiles: int
+
+
+@dataclass
 class SparseLevel:
     """One resolution level; coords in the level's own grid units."""
 
@@ -27,6 +49,9 @@ class SparseLevel:
     down_kmap: Optional[torch.Tensor] = None  # [8, cap] into the finer level
     up_kmap: Optional[torch.Tensor] = None    # [8, cap] into the coarser level
     up_one_hot: bool = False              # up_kmap fires one offset per row
+    # down_kmap's pairs grouped by parity: the up conv into the finer level
+    # and the backward of the down conv into this one
+    parity_plan: Optional[ParityPlan] = None
 
     @property
     def capacity(self) -> int:

@@ -20,7 +20,9 @@ Cin < 16 on XLA):
 
 The strided and transposed kinds carry the transposed map their backward
 needs (``kmap_t``): a down conv the fine level's up map, an up conv the
-coarse level's down map; the submanifold kind reverses its own map.
+coarse level's down map; the submanifold kind reverses its own map. Both
+also carry the coarse level's parity plan (``plan``), which the parent
+gather of the up conv (K4) and of the down backward (K6) tiles by.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from typing import List, Optional
 import torch
 from torch import nn
 
+from ..core.tensor import ParityPlan
 from ..ops.sparse_conv import sparse_conv_1x1
 from ..ops.subm_conv import SubmConvFn
 from ..ops.updown import DownConvFn, UpConvFn
@@ -68,7 +71,8 @@ class SparseConv(nn.Module):
 
     def forward(self, feats: torch.Tensor, kmap: Optional[torch.Tensor],
                 out_valid: torch.Tensor,
-                kmap_t: Optional[torch.Tensor] = None) -> torch.Tensor:
+                kmap_t: Optional[torch.Tensor] = None,
+                plan: Optional[ParityPlan] = None) -> torch.Tensor:
         cdt = self.compute_dtype
         if self.kind == "1x1":
             return sparse_conv_1x1(feats, self.weight, out_valid,
@@ -76,10 +80,11 @@ class SparseConv(nn.Module):
         fn = _CONVS[self.kind][1]
         args = (feats.to(cdt).contiguous(), self.weight, kmap)
         if self.kind != "subm":
-            if kmap_t is None:
+            if kmap_t is None or plan is None:
                 raise ValueError(f"a {self.kind} conv needs kmap_t, the "
-                                 "transposed map of its backward")
-            args += (kmap_t,)
+                                 "transposed map of its backward, and the "
+                                 "coarse level's parity plan")
+            args += (kmap_t, plan)
         out = torch.where(out_valid[:, None], fn.apply(*args), 0.0)
         return out.to(torch.promote_types(feats.dtype, cdt))
 
@@ -129,9 +134,9 @@ class BasicConvBlock(nn.Module):
         self.conv = SparseConv(cin, cout, kind, compute_dtype)
         self.bn = MaskedBatchNorm(cout)
 
-    def forward(self, feats, kmap, out_valid, kmap_t=None):
-        return torch.relu(self.bn(self.conv(feats, kmap, out_valid, kmap_t),
-                                  out_valid))
+    def forward(self, feats, kmap, out_valid, kmap_t=None, plan=None):
+        return torch.relu(self.bn(self.conv(feats, kmap, out_valid, kmap_t,
+                                            plan), out_valid))
 
 
 class ResidualBlock(nn.Module):

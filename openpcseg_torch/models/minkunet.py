@@ -103,7 +103,7 @@ class MinkUNet(nn.Module):
         for i in range(4):
             fine, coarse = lv[i], lv[i + 1]
             x = self.downs[i](x, coarse.down_kmap, coarse.valid,
-                              kmap_t=fine.up_kmap)
+                              kmap_t=fine.up_kmap, plan=coarse.parity_plan)
             x = self._run(self.down_blocks[i], x, coarse)
             feats.append(x)
         z = [pyr.devox[4].apply(x)]
@@ -112,7 +112,7 @@ class MinkUNet(nn.Module):
         for i in range(4):
             coarse, fine = lv[4 - i], lv[3 - i]
             x = self.ups[i](x, fine.up_kmap, fine.valid,
-                            kmap_t=coarse.down_kmap)
+                            kmap_t=coarse.down_kmap, plan=coarse.parity_plan)
             x = torch.relu(self.up_bns[i](x, fine.valid))
             x = torch.cat([x, feats[3 - i]], dim=-1)
             x = self._run(self.up_blocks[i], x, fine)

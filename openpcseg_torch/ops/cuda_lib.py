@@ -44,7 +44,9 @@ PLAIN_ON_CUDA = dict.fromkeys(COUNTERS, 0)
 # name -> number of pointer arguments before the int arguments
 _SIGNATURES = {
     "opcs_gather_gemm_bf16": (4, 4),   # feats, w, kmap, out | n_out, K, cin, cout
-    "opcs_parent_gemm_bf16": (5, 3),   # src, w, parent, parity, out | n_out, cin, cout
+    # src, w, src_rows, dst_rows, group_off, tile_off, out
+    #   | cin, cout, max_tiles, tile_rows
+    "opcs_parent_gemm_bf16": (7, 4),
     "opcs_devox_bf16": (4, 2),         # vox, idx, w, out | n, c
     "opcs_devox_f32": (4, 2),
     # a, ia, b, ib, partial, out | n, K, ca, cb, rows_per_chunk, n_chunks

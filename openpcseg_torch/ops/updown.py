@@ -7,11 +7,13 @@ Counterpart of ``openpcseg_tpu/ops/pallas_updown.py``:
   of the gather-GEMM in ``csrc/gather_gemm.cu``; plain version
   ``ops.sparse_conv._conv_apply``.
 - K4 replaces ``_parent_kernel`` (want_dw=False, entry ``pallas_conv_up2``):
-  ``fine[f] = coarse[parent(f)] @ W[parity(f)]`` in ``csrc/parent_gemm.cu``;
-  plain version ``ops.sparse_conv._up2_fwd_impl``.
+  ``fine[f] = coarse[parent(f)] @ W[parity(f)]`` in ``csrc/parent_gemm.cu``,
+  tiled by the coarse level's parity plan (``core.tensor.ParityPlan``,
+  built once per step in ``build_pyramid``); plain version
+  ``ops.sparse_conv._up2_fwd_impl`` over the up map.
 - K6 replaces ``_parent_kernel`` (want_dw=True, the down backward
   ``_down2_bwd``): ``dfeats_f[i] = dout[parent(i)] @ W[parity(i)]^T`` is
-  K4's parent gather over the fine level's up map with ``W^T``, and dW is
+  K4's parent gather over the same parity plan with ``W^T``, and dW is
   ``csrc/gather_dw.cu`` with the fine feats gathered by the down map;
   plain version ``ops.sparse_conv._core_bwd`` over the up map.
 - K5 replaces ``_pair_kernel`` (want_dw=True, the up backward
@@ -27,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.tensor import ParityPlan
 from . import cuda_lib
 from .sparse_conv import _conv_apply, _core_bwd, _up2_fwd_impl
 from .subm_conv import gather_dw, gather_gemm
@@ -46,43 +49,41 @@ def down_conv_plain(feats, weights, kmap):
     return _conv_apply(feats, weights, kmap, None, feats.dtype)
 
 
-def parent_parity(up_kmap: torch.Tensor):
-    """(parent [N_fine], parity [N_fine]) int32 of a one-hot up map: the
-    single hit per row and its offset (parent -1 where a row has none)."""
-    parent = up_kmap.max(dim=0).values.to(torch.int32).contiguous()
-    parity = (up_kmap >= 0).to(torch.int32).argmax(dim=0)
-    return parent, parity.to(torch.int32).contiguous()
-
-
-def parent_gemm(src: torch.Tensor, weights: torch.Tensor,
-                up_kmap: torch.Tensor, counter: str) -> torch.Tensor:
-    """Launch the parent gather: out[f] = src[parent f] @ W[parity f] over
-    a one-hot up map [8, N_fine], float32 [N_fine, Cout]. bf16 src;
-    weights are cast to bf16."""
+def parent_gemm(src: torch.Tensor, weights: torch.Tensor, plan: ParityPlan,
+                counter: str) -> torch.Tensor:
+    """Launch the parent gather over a level's parity plan: out[f] =
+    src[parent f] @ W[parity f], zero rows where f has no parent, float32
+    [N_fine, Cout]. bf16 src; weights are cast to bf16."""
     dev = src.device
     k, cin, cout = weights.shape
     w = weights.to(torch.bfloat16).contiguous()
     cuda_lib.check_cuda(src, "src", torch.bfloat16, 2, dev)
-    cuda_lib.check_cuda(up_kmap, "up_kmap", torch.int32, 2, dev)
-    if k != 8 or src.shape[1] != cin or up_kmap.shape[0] != 8:
+    cuda_lib.check_cuda(w, "weights", torch.bfloat16, 3, dev)
+    for name in ("src_rows", "dst_rows", "group_offsets", "tile_offsets"):
+        cuda_lib.check_cuda(getattr(plan, name), name, torch.int32, 1, dev)
+    n_out = plan.dst_rows.shape[0]
+    if (k != 8 or src.shape[1] != cin or plan.src_rows.shape[0] != n_out
+            or plan.group_offsets.shape[0] != 10
+            or plan.tile_offsets.shape[0] != 10):
         raise ValueError(f"parent_gemm: src {tuple(src.shape)}, weights "
-                         f"{tuple(weights.shape)}, kmap {tuple(up_kmap.shape)}")
-    parent, parity = parent_parity(up_kmap)
-    n_out = up_kmap.shape[1]
+                         f"{tuple(weights.shape)}, plan of {n_out} rows")
     out = torch.empty((n_out, cout), dtype=torch.float32, device=dev)
     cuda_lib.launch("opcs_parent_gemm_bf16", counter, src.data_ptr(),
-                    w.data_ptr(), parent.data_ptr(), parity.data_ptr(),
-                    out.data_ptr(), n_out, cin, cout)
+                    w.data_ptr(), plan.src_rows.data_ptr(),
+                    plan.dst_rows.data_ptr(), plan.group_offsets.data_ptr(),
+                    plan.tile_offsets.data_ptr(), out.data_ptr(), cin, cout,
+                    plan.max_tiles, plan.tile_rows)
     return out
 
 
 def up_conv(feats: torch.Tensor, weights: torch.Tensor,
-            up_kmap: torch.Tensor) -> torch.Tensor:
+            up_kmap: torch.Tensor, plan: ParityPlan) -> torch.Tensor:
     """Transposed conv coarse -> fine over a one-hot up map [8, N_fine]:
-    float32 [N_fine, Cout]. CPU: plain version; CUDA: K4 or raise."""
+    float32 [N_fine, Cout]. CPU: plain version over the map; CUDA: K4 over
+    the coarse level's parity plan (the same pairs), or raise."""
     if not feats.is_cuda:
         return up_conv_plain(feats, weights, up_kmap)
-    return parent_gemm(feats, weights, up_kmap, "up")
+    return parent_gemm(feats, weights, plan, "up")
 
 
 def up_conv_plain(feats, weights, up_kmap):
@@ -92,15 +93,16 @@ def up_conv_plain(feats, weights, up_kmap):
 
 def down_conv_bwd(dout: torch.Tensor, feats: torch.Tensor,
                   weights: torch.Tensor, kmap: torch.Tensor,
-                  up_kmap: torch.Tensor):
+                  up_kmap: torch.Tensor, plan: ParityPlan):
     """K6: (dfeats [N_fine, Cin], dW [8, Cin, Cout]), both float32, for
     the upstream gradient dout [N_coarse, Cout] of ``down_conv`` over the
-    down map `kmap`; `up_kmap` is the fine level's up map (the transpose).
-    CPU: plain version; CUDA: the kernels or raise."""
+    down map `kmap`; `up_kmap` is the fine level's up map (the transpose)
+    and `plan` the coarse level's parity plan (the same pairs). CPU: plain
+    version over the maps; CUDA: the kernels or raise."""
     if not dout.is_cuda:
         return down_conv_bwd_plain(dout, feats, weights, kmap, up_kmap)
     d16 = dout.to(torch.bfloat16).contiguous()
-    dfeats = parent_gemm(d16, weights.transpose(1, 2), up_kmap, "down_bwd")
+    dfeats = parent_gemm(d16, weights.transpose(1, 2), plan, "down_bwd")
     return dfeats, gather_dw(feats, kmap, d16, None)
 
 
@@ -130,31 +132,34 @@ def up_conv_bwd_plain(dout, feats, weights, up_kmap, down_kmap):
 
 class DownConvFn(torch.autograd.Function):
     """out = down_conv(feats, W, down_kmap) with the K6 backward, which
-    needs the fine level's up map. Returns float32."""
+    needs the fine level's up map and the coarse level's parity plan.
+    Returns float32."""
 
     @staticmethod
-    def forward(ctx, feats, weights, kmap, up_kmap):
+    def forward(ctx, feats, weights, kmap, up_kmap, plan):
         ctx.save_for_backward(feats, weights, kmap, up_kmap)
+        ctx.plan = plan
         return down_conv(feats, weights, kmap)
 
     @staticmethod
     def backward(ctx, dout):
         feats, weights, kmap, up_kmap = ctx.saved_tensors
-        dfeats, dw = down_conv_bwd(dout, feats, weights, kmap, up_kmap)
-        return dfeats.to(feats.dtype), dw.to(weights.dtype), None, None
+        dfeats, dw = down_conv_bwd(dout, feats, weights, kmap, up_kmap,
+                                   ctx.plan)
+        return dfeats.to(feats.dtype), dw.to(weights.dtype), None, None, None
 
 
 class UpConvFn(torch.autograd.Function):
-    """out = up_conv(feats, W, up_kmap) with the K5 backward, which needs
-    the coarse level's down map. Returns float32."""
+    """out = up_conv(feats, W, up_kmap, plan) with the K5 backward, which
+    needs the coarse level's down map. Returns float32."""
 
     @staticmethod
-    def forward(ctx, feats, weights, up_kmap, down_kmap):
+    def forward(ctx, feats, weights, up_kmap, down_kmap, plan):
         ctx.save_for_backward(feats, weights, up_kmap, down_kmap)
-        return up_conv(feats, weights, up_kmap)
+        return up_conv(feats, weights, up_kmap, plan)
 
     @staticmethod
     def backward(ctx, dout):
         feats, weights, up_kmap, down_kmap = ctx.saved_tensors
         dfeats, dw = up_conv_bwd(dout, feats, weights, up_kmap, down_kmap)
-        return dfeats.to(feats.dtype), dw.to(weights.dtype), None, None
+        return dfeats.to(feats.dtype), dw.to(weights.dtype), None, None, None

@@ -10,6 +10,7 @@ import pytest
 import torch
 import yaml
 
+from openpcseg_torch.core.geometry import build_parity_plan
 from openpcseg_torch.core.tensor import DevoxTable
 from openpcseg_torch.ops import cuda_lib, devox, subm_conv, updown
 
@@ -75,6 +76,7 @@ def _calls(rng):
     d = _flag(torch.zeros(16, 8))
     km27 = torch.full((27, 16), -1, dtype=torch.int32)
     km8 = torch.full((8, 16), -1, dtype=torch.int32)
+    plan = build_parity_plan(km8, 16)
     w27 = torch.as_tensor(rng.normal(size=(27, 8, 8)), dtype=torch.float32)
     w8 = torch.as_tensor(rng.normal(size=(8, 8, 8)), dtype=torch.float32)
     idx = torch.full((8, 16), -1, dtype=torch.int32)
@@ -86,10 +88,10 @@ def _calls(rng):
     return {
         "subm": lambda: subm_conv.subm_conv(f, w27, km27),
         "down": lambda: updown.down_conv(f, w8, km8),
-        "up": lambda: updown.up_conv(f, w8, km8),
+        "up": lambda: updown.up_conv(f, w8, km8, plan),
         "devox": lambda: devox.devoxelize(f, idx, wts),
         "subm_bwd": lambda: subm_conv.subm_conv_bwd(d, f, w27, km27),
-        "down_bwd": lambda: updown.down_conv_bwd(d, f, w8, km8, km8),
+        "down_bwd": lambda: updown.down_conv_bwd(d, f, w8, km8, km8, plan),
         "up_bwd": lambda: updown.up_conv_bwd(d, f, w8, km8, km8),
         "dw": lambda: subm_conv.gather_dw(f, km27, f, None),
         "devox_bwd": lambda: devox.devoxelize_bwd(f, tbl),

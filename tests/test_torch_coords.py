@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_kernels import check_parity_plan
 
 from openpcseg_tpu.core.batch import voxelize_points_batch as jx_voxelize
 from openpcseg_tpu.core.geometry import _corner_table as jx_corner_table
@@ -172,6 +173,20 @@ def test_pyramid_levels_and_maps(scan_pyramids):
             assert tl.up_one_hot and jl.up_one_hot
             _eq(tl.up_kmap, jl.up_kmap)
     _eq(tpyr.point_to_voxel0, jpyr.point_to_voxel0)
+
+
+@pytest.mark.parametrize("level", [1, 2, 3, 4])
+def test_parity_plan_of_the_scan_pyramid(scan_pyramids, level):
+    """Each coarse level's parity plan, integer-exact against JAX's up map
+    of the finer level: rows grouped by parity with their parents, both
+    row lists ascending, the padding and overflow rows in group 8, and
+    tiles that cover each group without crossing into the next."""
+    _, _, _, jpyr, tpyr = scan_pyramids
+    plan = tpyr.levels[level].parity_plan
+    check_parity_plan(plan, jpyr.levels[level - 1].up_kmap)
+    off = plan.group_offsets.numpy()
+    assert off[9] > off[8]        # the padding rows: a real zero group
+    assert (np.diff(off)[:8] % plan.tile_rows != 0).any()   # ragged tiles
 
 
 @pytest.mark.parametrize("level", [2, 4])

@@ -11,7 +11,9 @@ subm version takes the identity centre offset without a gather). Operands
 are bf16, both sides sum in float32, so they differ by summation order
 only: max|kernel - plain| <= 2e-2 * max|plain|. The backward kernels (K2,
 K5, K6 and the shared dW kernel, K8) are checked per output, dfeats and dW
-apart, and must repeat bit for bit: none of them uses atomics.
+apart, and must repeat bit for bit: none of them uses atomics. So must the
+parent gather (K4, and K6's dfeats alone), whose rows without a parent
+must come out exactly zero.
 """
 import pytest
 import torch
@@ -19,6 +21,7 @@ import torch
 from openpcseg_torch.data.raycast import raycast_batch
 from openpcseg_torch.engine.task import SegTask, batch_to_device
 from openpcseg_torch.ops import cuda_lib, devox, subm_conv, updown
+from openpcseg_torch.ops.sparse_conv import _conv_apply
 from openpcseg_torch.ops.voxelize import _devox_bwd
 
 pytestmark = pytest.mark.cuda
@@ -76,13 +79,61 @@ def test_down_kernel(pyr, level, c):
     _close(updown.down_conv(x, w, km), updown.down_conv_plain(x, w, km))
 
 
-@pytest.mark.parametrize("level,cin,cout", [(3, 256, 256), (0, 96, 96)])
+def _parent_check(got, again, ref, plan):
+    """The parent gather: close to its plain version, bit-identical twice,
+    and exactly zero on the rows without a parent (the plan's group 8)."""
+    _close(got, ref)
+    assert torch.equal(got, again)
+    off = plan.group_offsets.tolist()
+    assert off[9] > off[8]
+    assert (got[plan.dst_rows[off[8]:].long()] == 0).all()
+
+
+# the four mk34 up convs (fine level, Cin, Cout): Cout 96 at levels 1 and 0
+@pytest.mark.parametrize("level,cin,cout", [(3, 256, 256), (2, 256, 128),
+                                            (1, 128, 96), (0, 96, 96)])
 def test_up_kernel(pyr, level, cin, cout):
     g = torch.Generator(device="cuda").manual_seed(2)
     x = _feats(pyr.levels[level + 1], cin, g)
     w = _rand(8, cin, cout, gen=g)
     km = pyr.levels[level].up_kmap
-    _close(updown.up_conv(x, w, km), updown.up_conv_plain(x, w, km))
+    plan = pyr.levels[level + 1].parity_plan
+    sizes = plan.group_offsets.diff()[:8]
+    assert (sizes % plan.tile_rows != 0).any()   # ragged tiles on this path
+    n = cuda_lib.LAUNCHES["up"]
+    got, again = updown.up_conv(x, w, km, plan), updown.up_conv(x, w, km,
+                                                                plan)
+    assert cuda_lib.LAUNCHES["up"] == n + 2
+    _parent_check(got, again, updown.up_conv_plain(x, w, km), plan)
+
+
+# K6's data gradient alone at the four mk34 down convs (coarse level, C):
+# dout [N_coarse, C] through W^T over the coarse level's plan
+@pytest.mark.parametrize("level,c", [(1, 32), (2, 32), (3, 64), (4, 128)])
+def test_down_dfeats_kernel(pyr, level, c):
+    g = torch.Generator(device="cuda").manual_seed(8)
+    d = _feats(pyr.levels[level], c, g)
+    w = _rand(8, c, c, gen=g).float()
+    plan = pyr.levels[level].parity_plan
+    up_kmap = pyr.levels[level - 1].up_kmap
+    got = updown.parent_gemm(d, w.transpose(1, 2), plan, "down_bwd")
+    again = updown.parent_gemm(d, w.transpose(1, 2), plan, "down_bwd")
+    ref = _conv_apply(d, w.transpose(1, 2), up_kmap, None, torch.bfloat16)
+    _parent_check(got, again, ref, plan)
+
+
+# ragged widths (element loads and stores) and Cout > 256 (two column
+# blocks), on the level-0 up conv's plan
+@pytest.mark.parametrize("cin,cout", [(12, 18), (256, 300)])
+def test_parent_gemm_edges(pyr, cin, cout):
+    g = torch.Generator(device="cuda").manual_seed(9)
+    x = _feats(pyr.levels[1], cin, g)
+    w = _rand(8, cin, cout, gen=g)
+    km = pyr.levels[0].up_kmap
+    plan = pyr.levels[1].parity_plan
+    got, again = updown.up_conv(x, w, km, plan), updown.up_conv(x, w, km,
+                                                                plan)
+    _parent_check(got, again, updown.up_conv_plain(x, w, km), plan)
 
 
 @pytest.mark.parametrize("level,c", [(4, 256), (2, 128)])
@@ -94,9 +145,10 @@ def test_devox_kernel(pyr, level, c):
            devox.devoxelize_plain(x, t.idx, t.weights))
 
 
-def _bwd_check(kern, plain, args):
+def _bwd_check(kern, plain, args, kern_extra=()):
     """Each output against the plain version, and bit-identical twice."""
-    got, again, ref = kern(*args), kern(*args), plain(*args)
+    got, again = kern(*args, *kern_extra), kern(*args, *kern_extra)
+    ref = plain(*args)
     for g, a, r in zip(got, again, ref):
         _close(g, r)
         assert torch.equal(g, a)
@@ -121,7 +173,8 @@ def test_down_backward_kernels(pyr, level, c):
     fine, coarse = pyr.levels[level - 1], pyr.levels[level]
     args = (_feats(coarse, c, g).float(), _feats(fine, c, g),
             _rand(8, c, c, gen=g).float(), coarse.down_kmap, fine.up_kmap)
-    _bwd_check(updown.down_conv_bwd, updown.down_conv_bwd_plain, args)
+    _bwd_check(updown.down_conv_bwd, updown.down_conv_bwd_plain, args,
+               (coarse.parity_plan,))
 
 
 @pytest.mark.parametrize("level,cin,cout", [(3, 256, 256), (0, 96, 96)])

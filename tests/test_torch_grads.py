@@ -24,8 +24,9 @@ import numpy as np
 import pytest
 import torch
 from test_torch_kernels import (PALLAS_CONV_TOL, PALLAS_DEVOX_TOL, XLA_TOL,
-                                devox_tables, small_pallas_config,  # noqa
-                                subm_scene, updown_scene)
+                                devox_tables, scene_plan,
+                                small_pallas_config,  # noqa
+                                subm_scene, tiled_parent_gemm, updown_scene)
 
 import openpcseg_tpu.ops.pallas_conv as pc
 import openpcseg_tpu.ops.pallas_devox as pd
@@ -105,7 +106,8 @@ def test_down_grads_match_pallas_and_xla(rng):
     w = rng.normal(size=(8, 8, 12)).astype(np.float32)
     r = rng.normal(size=(dk.shape[1], 12)).astype(np.float32)
     got = _torch_grads(DownConvFn.apply, f_fine, w, r, cvalid,
-                       _t(dk, torch.int32), _t(uk, torch.int32))
+                       _t(dk, torch.int32), _t(uk, torch.int32),
+                       scene_plan(dk, uk.shape[1]))
     _check(got, _jax_grads(lambda f, w_: pud.pallas_conv_down2(
         f, w_, dk, cvalid, uk, compute_dtype=F32), f_fine, w, r),
         PALLAS_CONV_TOL)
@@ -119,7 +121,8 @@ def test_up_grads_match_pallas_and_xla(rng):
     w = rng.normal(size=(8, 8, 12)).astype(np.float32)
     r = rng.normal(size=(uk.shape[1], 12)).astype(np.float32)
     got = _torch_grads(UpConvFn.apply, f_coarse, w, r, fvalid,
-                       _t(uk, torch.int32), _t(dk, torch.int32))
+                       _t(uk, torch.int32), _t(dk, torch.int32),
+                       scene_plan(dk, uk.shape[1]))
     _check(got, _jax_grads(lambda f, w_: pud.pallas_conv_up2(
         f, w_, uk, fvalid, dk, compute_dtype=F32), f_coarse, w, r),
         PALLAS_CONV_TOL)
@@ -192,11 +195,14 @@ def test_gradcheck_float64(rng):
     f_fine, f_coarse, dk, uk, _, _ = updown_scene(rng, cin=2, span=5,
                                                   n_batch=1, n_active=20)
     w8 = _t(rng.normal(size=(8, 2, 3)), f64).requires_grad_()
+    plan = scene_plan(dk, uk.shape[1])
     dk, uk = _t(dk, torch.int32), _t(uk, torch.int32)
     assert torch.autograd.gradcheck(
-        DownConvFn.apply, (_t(f_fine, f64).requires_grad_(), w8, dk, uk))
+        DownConvFn.apply, (_t(f_fine, f64).requires_grad_(), w8, dk, uk,
+                           plan))
     assert torch.autograd.gradcheck(
-        UpConvFn.apply, (_t(f_coarse, f64).requires_grad_(), w8, uk, dk))
+        UpConvFn.apply, (_t(f_coarse, f64).requires_grad_(), w8, uk, dk,
+                         plan))
 
     vf, idx, w = devox_tables(rng, 20, 9, 3)
     tbl = _devox_table(idx, w, 9)
@@ -224,11 +230,15 @@ def _plain(t):
 
 @pytest.fixture
 def plain_launchers(monkeypatch):
-    """The kernel launchers replaced by plain float32 equivalents."""
-    def gemm(feats, w, kmap, counter):         # gather_gemm / parent_gemm
+    """The kernel launchers replaced by plain float32 equivalents; the
+    parent gather by its tiled formulation over the parity plan."""
+    def gemm(feats, w, kmap, counter):         # gather_gemm
         return _conv_apply(_plain(feats), _plain(w),
                            kmap.as_subclass(torch.Tensor), None,
                            torch.float32)
+
+    def parent(src, w, plan, counter):         # parent_gemm
+        return tiled_parent_gemm(_plain(src), _plain(w), plan)
 
     def dw(a, ia, b, ib):
         return gather_dw_plain(_plain(a), ia, _plain(b), ib)
@@ -236,7 +246,7 @@ def plain_launchers(monkeypatch):
     for mod in (subm_conv, updown):
         monkeypatch.setattr(mod, "gather_gemm", gemm)
         monkeypatch.setattr(mod, "gather_dw", dw)
-    monkeypatch.setattr(updown, "parent_gemm", gemm)
+    monkeypatch.setattr(updown, "parent_gemm", parent)
 
 
 def _bf16_grade(rng, *shape):
@@ -248,9 +258,12 @@ def _bf16_grade(rng, *shape):
 @pytest.mark.parametrize("kind", ["subm", "down", "up"])
 def test_cuda_branch_formulation(rng, plain_launchers, kind):
     """Offset order of the flipped map against W[k]^T, the up / down maps
-    each backward reads, and the side of dW each map gathers."""
+    and the parity plan each backward reads, and the side of dW each map
+    gathers."""
     fine_f, coarse_f, dk, uk, fvalid, cvalid = updown_scene(rng, cin=8)
+    plan = scene_plan(dk, uk.shape[1], tile_rows=8)
     dk, uk = _t(dk, torch.int32), _t(uk, torch.int32)
+    extra = ()
     if kind == "subm":
         feats, kmap, valid = subm_scene(rng, cin=8)
         kmap = _t(kmap, torch.int32)
@@ -264,6 +277,7 @@ def test_cuda_branch_formulation(rng, plain_launchers, kind):
         d = _bf16_grade(rng, dk.shape[1], 12) * _t(cvalid, torch.bool)[:,
                                                                        None]
         args = (x, w, dk, uk)
+        extra = (plan,)               # the kernel branch tiles by the plan
         kern, plain = updown.down_conv_bwd, updown.down_conv_bwd_plain
     else:
         x, w = _t(coarse_f), _bf16_grade(rng, 8, 8, 12)
@@ -272,7 +286,7 @@ def test_cuda_branch_formulation(rng, plain_launchers, kind):
         args = (x, w, uk, dk)
         kern, plain = updown.up_conv_bwd, updown.up_conv_bwd_plain
     x16 = x.to(torch.bfloat16)
-    got = kern(_flag(d), _flag(x16), *args[1:])
+    got = kern(_flag(d), _flag(x16), *args[1:], *extra)
     want = plain(d, x16.float(), *args[1:])
     for g, r in zip(got, want):
         np.testing.assert_allclose(_plain(g).numpy(), r.numpy(), rtol=1e-4,

@@ -24,10 +24,12 @@ from openpcseg_tpu.ops import build_subm_kmap, kernel_offsets, unique_coords
 from openpcseg_tpu.ops.sparse_conv import (sparse_conv, sparse_conv_up2,
                                            window_subm_conv)
 from openpcseg_tpu.ops.voxelize import _devox_apply as jx_devox_apply
+from openpcseg_torch.core.geometry import build_parity_plan
 from openpcseg_torch.ops import cuda_lib
 from openpcseg_torch.ops.devox import devoxelize
+from openpcseg_torch.ops.sparse_conv import _core_bwd, _up2_fwd_impl
 from openpcseg_torch.ops.subm_conv import subm_conv
-from openpcseg_torch.ops.updown import down_conv, parent_parity, up_conv
+from openpcseg_torch.ops.updown import down_conv, up_conv
 
 XLA_TOL = dict(rtol=1e-4, atol=1e-4)
 PALLAS_CONV_TOL = dict(rtol=0.05, atol=0.05)
@@ -105,6 +107,66 @@ def updown_scene(rng, cin=8, span=12, n_batch=2, n_active=150):
             coarse.valid)
 
 
+def scene_plan(down_kmap, n_fine, tile_rows=64):
+    """The coarse level's parity plan of a test scene's down map."""
+    return build_parity_plan(_t(down_kmap, torch.int32), n_fine, tile_rows)
+
+
+def plan_tiles(plan):
+    """(group, first slot, end slot) of every tile the kernel runs, found
+    as csrc/parent_gemm.cu finds them: the group of tile t is the last
+    whose first tile is <= t."""
+    off = plan.group_offsets.tolist()
+    toff = plan.tile_offsets.tolist()
+    for t in range(toff[9]):
+        g = sum(t >= toff[q] for q in range(1, 9))
+        start = off[g] + (t - toff[g]) * plan.tile_rows
+        yield g, start, min(start + plan.tile_rows, off[g + 1])
+
+
+def tiled_parent_gemm(src, w, plan):
+    """The kernel's formulation in plain float32 PyTorch: per tile of the
+    plan, gather its source rows, multiply by W[parity], scatter to its
+    destination rows; tiles of group 8 write zeros. Rows start as NaN, so
+    a row no tile writes shows."""
+    out = torch.full((plan.dst_rows.shape[0], w.shape[2]), float("nan"))
+    for g, start, stop in plan_tiles(plan):
+        dst = plan.dst_rows[start:stop].long()
+        if g == 8:
+            out[dst] = 0.0
+        else:
+            out[dst] = (src.float()[plan.src_rows[start:stop].long()]
+                        @ w[g].float())
+    return out
+
+
+def check_parity_plan(plan, up_kmap):
+    """The plan against the up map [8, N_fine] it groups, integer-exact."""
+    uk = np.asarray(up_kmap)
+    n_fine = uk.shape[1]
+    src, dst = plan.src_rows.numpy(), plan.dst_rows.numpy()
+    off, toff = plan.group_offsets.numpy(), plan.tile_offsets.numpy()
+    assert src.dtype == dst.dtype == off.dtype == toff.dtype == np.int32
+    np.testing.assert_array_equal(np.sort(dst), np.arange(n_fine))
+    assert off[0] == 0 and off[9] == n_fine
+    parent = uk.max(0)
+    for p in range(8):
+        gs, gd = src[off[p]:off[p + 1]], dst[off[p]:off[p + 1]]
+        np.testing.assert_array_equal(gd, np.flatnonzero(uk[p] >= 0))
+        np.testing.assert_array_equal(gs, parent[gd])
+        assert (np.diff(gs) > 0).all() and (np.diff(gd) > 0).all()
+    np.testing.assert_array_equal(dst[off[8]:], np.flatnonzero(parent < 0))
+    assert (src[off[8]:] == -1).all()
+    np.testing.assert_array_equal(np.diff(toff),
+                                  -(-np.diff(off) // plan.tile_rows))
+    assert plan.max_tiles == -(-n_fine // plan.tile_rows) + 9 >= toff[9]
+    covered = np.zeros(n_fine, int)
+    for g, start, stop in plan_tiles(plan):
+        assert off[g] <= start < stop <= off[g + 1]
+        covered[start:stop] += 1
+    assert (covered == 1).all()
+
+
 # ------------------------------------------------------------------ K1 ----
 
 def test_subm_conv_matches_pallas_interpret(rng):
@@ -146,7 +208,8 @@ def test_down_conv_matches_pallas_and_xla(rng):
 def test_up_conv_matches_pallas_and_xla(rng):
     _, f_coarse, dk, uk, fvalid, _ = updown_scene(rng)
     w = rng.normal(size=(8, 8, 12)).astype(np.float32)
-    got = _masked(up_conv(_t(f_coarse), _t(w), _t(uk)), fvalid)
+    got = _masked(up_conv(_t(f_coarse), _t(w), _t(uk),
+                          scene_plan(dk, uk.shape[1])), fvalid)
     ref_pl = pud.pallas_conv_up2(jnp.asarray(f_coarse), jnp.asarray(w), uk,
                                  fvalid, dk, compute_dtype=jnp.float32)
     np.testing.assert_allclose(got, np.asarray(ref_pl), **PALLAS_CONV_TOL)
@@ -156,16 +219,57 @@ def test_up_conv_matches_pallas_and_xla(rng):
     assert np.abs(got).max() > 0.1
 
 
-def test_parent_parity_is_the_one_hot_hit(rng):
-    _, _, _, uk, fvalid, _ = updown_scene(rng)
-    uk = np.asarray(uk)
-    parent, parity = parent_parity(_t(uk))
-    hit = (uk >= 0).sum(0)
-    assert set(np.unique(hit)) <= {0, 1}
-    np.testing.assert_array_equal(parent.numpy(), uk.max(0))
-    rows = np.nonzero(hit)[0]
-    np.testing.assert_array_equal(uk[parity.numpy()[rows], rows],
-                                  uk.max(0)[rows])
+# (tile rows, parentless padding rows): 64 = the kernel's tiles; 8 puts
+# several tiles in every group, and the padding fills group 8
+PLAN_CASES = [(64, 0), (8, 40)]
+
+
+@pytest.mark.parametrize("tile_rows,pad", PLAN_CASES)
+def test_parity_plan_groups_the_up_map(rng, tile_rows, pad):
+    _, _, dk, uk, _, _ = updown_scene(rng)
+    uk = np.pad(np.asarray(uk), ((0, 0), (0, pad)), constant_values=-1)
+    check_parity_plan(scene_plan(dk, uk.shape[1], tile_rows), uk)
+
+
+@pytest.mark.parametrize("tile_rows,pad", PLAN_CASES)
+def test_tiled_up_conv_matches_plain_and_jax(rng, tile_rows, pad):
+    """K4's formulation over the plan against the plain version (float32
+    both, other summation order) and JAX's XLA and Pallas up convs."""
+    _, f_coarse, dk, uk, fvalid, _ = updown_scene(rng)
+    n = uk.shape[1]
+    w = rng.normal(size=(8, 8, 12)).astype(np.float32)
+    got = tiled_parent_gemm(_t(f_coarse), _t(w),
+                            scene_plan(dk, n + pad, tile_rows)).numpy()
+    assert (got[n:] == 0).all()
+    got = got[:n]
+    plain = _up2_fwd_impl(_t(f_coarse), _t(w), _t(uk), torch.float32)
+    np.testing.assert_allclose(got, plain.numpy(), rtol=1e-5, atol=1e-5)
+    ref_x = sparse_conv_up2(jnp.asarray(f_coarse), jnp.asarray(w), uk,
+                            fvalid, dk, compute_dtype=jnp.float32)
+    np.testing.assert_allclose(_masked(torch.as_tensor(got), fvalid),
+                               np.asarray(ref_x), **XLA_TOL)
+    ref_pl = pud.pallas_conv_up2(jnp.asarray(f_coarse), jnp.asarray(w), uk,
+                                 fvalid, dk, compute_dtype=jnp.float32)
+    np.testing.assert_allclose(_masked(torch.as_tensor(got), fvalid),
+                               np.asarray(ref_pl), **PALLAS_CONV_TOL)
+    assert np.abs(got).max() > 0.1
+
+
+@pytest.mark.parametrize("tile_rows,pad", PLAN_CASES)
+def test_tiled_down_dfeats_matches_core_bwd(rng, tile_rows, pad):
+    """K6's dfeats formulation (the plan with W^T) against the plain down
+    backward's dfeats, float32."""
+    f_fine, _, dk, uk, _, _ = updown_scene(rng)
+    n = uk.shape[1]
+    w = rng.normal(size=(8, 8, 12)).astype(np.float32)
+    dout = rng.normal(size=(dk.shape[1], 12)).astype(np.float32)
+    got = tiled_parent_gemm(_t(dout), _t(w).transpose(1, 2),
+                            scene_plan(dk, n + pad, tile_rows)).numpy()
+    assert (got[n:] == 0).all()
+    ref = _core_bwd(_t(f_fine), _t(w), _t(uk), _t(dout), None,
+                    torch.float32)[0]
+    np.testing.assert_allclose(got[:n], ref.numpy(), rtol=1e-5, atol=1e-5)
+    assert np.abs(got).max() > 0.1
 
 
 # ------------------------------------------------------------------ K7 ----
