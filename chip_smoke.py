@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path once on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--report PATH]
+    python3 chip_smoke.py [--report PATH] [--cases-only]
 
 The main paths are the voxel-modality eval step and train step of MinkUNet
 mk34_cr10 at full width (the MODEL and OPTIM blocks of tools/cfgs/voxel/
@@ -16,22 +16,28 @@ through eight hand-written CUDA kernels (openpcseg_torch/csrc):
 
 Phases, in order (any failure exits non-zero and prints no result line):
   1. the card's name and power limit; TF32 off for matmuls and cuDNN;
-  2. build the kernels with nvcc (sm_90a) from the checkout's sources;
-  3. kernel phase: the device time of the parity plans (K4's and K6's
-     tiling) and of the whole voxelize + geometry pass under
-     torch.profiler; then each forward kernel against its plain PyTorch
-     version on the card, at the shapes a real pyramid of ray-cast scan 0
-     gives it, twice, bit for bit (K4: parentless rows exactly 0);
+  2. build the kernels with nvcc (sm_90a) from the checkout's sources, and
+     log ptxas's registers and spills per kernel instance;
+  3. kernel phase: the launch configuration of the two gather kernels at
+     the main-path shapes (tile, shared memory, blocks per SM); the device
+     time of the parity plans (K4's and K6's tiling) and of the whole
+     voxelize + geometry pass under torch.profiler; then each forward
+     kernel against its plain PyTorch version on the card, at the shapes a
+     real pyramid of ray-cast scan 0 gives it, twice, bit for bit (K4:
+     parentless rows exactly 0);
   4. serving phase: SegTask answers REQUESTS requests (eval_step +
      predict_step each), with voxel_overflow 0, hist summing to the valid
      point count, every forward kernel launched and no plain version run
      on a CUDA tensor; p50 latency per scan after a warm-up;
   5. reference phase: the same weights on an 8192-point scan, GPU (bf16,
      kernels) against CPU (float32, plain versions);
-  6. a torch.profiler window over one request (device time per kernel);
+  6. a torch.profiler window over one request (device time per kernel; per
+     kernel family beside its bound, from one more request whose kernel
+     calls note their work);
   7. backward-kernel phase: each backward kernel against its plain version
      on the card, dfeats and dW apart, at the same pyramid's shapes, and
-     twice, bit for bit; K6's dfeats pass (the parent gather) also alone;
+     twice, bit for bit; K2, K5 and K6 also pass by pass (dfeats alone, dW
+     alone);
   8. training phase: TRAIN_STEPS SegTask.train_steps on the repeated scan
      of seed 1, each with a finite loss and gradient norm, voxel_overflow
      0, every forward and backward kernel launched and no plain version on
@@ -39,8 +45,15 @@ Phases, in order (any failure exits non-zero and prints no result line):
   9. training-reference phase: one train_step of the same seeded weights
      on an 8192-point scan, GPU (bf16, kernels) against CPU (float32,
      plain versions): loss and gradient cosines;
- 10. a torch.profiler window over one train_step (device time per kernel,
-     device idle share);
+ 10. a torch.profiler window over one train_step (device time per kernel
+     and per family beside its bound, device idle share);
+Every kernel case carries CUDA-event ms of the wrapper and of the plain
+version, the kernel's profiler device ms, and its bound (bound_ms: bytes
+over the memory rate or operations over the peak rate, whichever is
+larger, from the case's own shapes and hits); K7 and K8 also the time of
+torch.sparse.mm over the same table as a CSR matrix (library_ms), which
+the port never calls. With --cases-only the script stops after the kernel
+and backward-kernel cases (the kernel half of an A/B call).
 then the kernel JSON line, the card line and the result line.
 The full report (every kernel case, request, step and profiler row) goes
 to --report, by default build/openpcseg_torch/chip_smoke.json.
@@ -48,7 +61,10 @@ to --report, by default build/openpcseg_torch/chip_smoke.json.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import inspect
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -119,6 +135,14 @@ ITERS_PER_EPOCH = 4   # so the one-epoch warm-up ends at step 4 of the run
 # to their plain versions one by one in the backward-kernel phase.
 TRAIN_REF = (0.03, 0.95, 0.85)
 FWD_COUNTERS = ("subm", "down", "up", "devox")
+# the least time a call could take (bound_ms): the larger of the bytes it
+# must move (each input read once, each output written once) over the
+# memory rate, and its operations over the peak rate of their type. NVIDIA's
+# published H100 SXM peaks at a 700 W power limit; the card line says what
+# limit this card runs at.
+HBM_BYTES_PER_S = 3.35e12
+BF16_TC_FLOPS = 989e12     # bf16 tensor cores, dense (K1-K6, dW)
+F32_FLOPS = 67e12          # float32 outside the tensor cores (K7, K8)
 
 KERNELS = {
     "K1_subm_conv": dict(
@@ -193,11 +217,117 @@ def parentless_rows(plan):
     return plan.dst_rows[int(plan.group_offsets[8]):].long()
 
 
+# -- the work of one call: (bytes it must move, operations, peak rate) ----
+
+def _rows(idx) -> int:
+    """Distinct rows an index array reads (-1 reads none)."""
+    return int(torch.unique(idx[idx >= 0]).numel())
+
+
+def gemm_work(feats, w, kmap):
+    """Gather-GEMM (K1, K3, the dfeats of K2 and K5): the map, each source
+    row it hits, W, the f32 output; 2 Cin Cout operations per hit."""
+    k, cin, cout = w.shape
+    return (kmap.numel() * 4 + _rows(kmap) * cin * 2
+            + kmap.shape[1] * cout * 4 + k * cin * cout * 2,
+            2 * int((kmap >= 0).sum()) * cin * cout, BF16_TC_FLOPS)
+
+
+def dw_work(a, ia, b, ib):
+    """Gathered weight gradient: the maps, each row of A and of B a live
+    pair reads, the f32 dW; 2 Ca Cb operations per live pair."""
+    idx = ia if ia is not None else ib
+    k, n = idx.shape
+    ident = torch.arange(n, device=idx.device).expand(k, n)
+    ra = ident if ia is None else ia
+    rb = ident if ib is None else ib
+    live = (ra >= 0) & (rb >= 0)
+    ca, cb = a.shape[1], b.shape[1]
+    maps = sum(m.numel() * 4 for m in (ia, ib) if m is not None)
+    return (maps + _rows(ra[live]) * ca * 2 + _rows(rb[live]) * cb * 2
+            + k * ca * cb * 4, 2 * int(live.sum()) * ca * cb, BF16_TC_FLOPS)
+
+
+def parent_work(src, w, plan):
+    """Parent gather (K4, K6's dfeats): the plan's two row tables, each
+    parent row, W, the f32 output; 2 Cin Cout operations per fine row with
+    a parent."""
+    k, cin, cout = w.shape
+    n = plan.dst_rows.numel()
+    par = int(plan.group_offsets[8])
+    return (2 * n * 4 + _rows(plan.src_rows[:par]) * cin * 2 + n * cout * 4
+            + k * cin * cout * 2, 2 * par * cin * cout, BF16_TC_FLOPS)
+
+
+def devox_work(x, idx, w):
+    """K7: the corner indices and weights, each voxel row hit, the output;
+    2 C operations per live corner (f32 on the CUDA cores)."""
+    c, es = x.shape[1], x.element_size()
+    return (idx.numel() * 8 + _rows(idx) * c * es + idx.shape[1] * c * es,
+            2 * int((idx >= 0).sum()) * c, F32_FLOPS)
+
+
+def devox_bwd_work(d, tbl):
+    """K8: the CSR transpose (offsets, points, weights), each point row a
+    contributor reads, dvox; 2 C operations per contributor."""
+    nnz = int(tbl.t_ptr[-1])
+    c, es = d.shape[1], d.element_size()
+    return ((tbl.num_voxels + 1) * 4 + nnz * 8
+            + _rows(tbl.t_point[:nnz]) * c * es + tbl.num_voxels * c * es,
+            2 * nnz * c, F32_FLOPS)
+
+
+def both(*works):
+    """Two passes of one backward: their bytes and operations added."""
+    return (sum(w[0] for w in works), sum(w[1] for w in works),
+            works[0][2])
+
+
+def bound(work):
+    """(bound_ms, bound_by) of a call's (bytes, operations, peak)."""
+    t_bytes, t_ops = work[0] / HBM_BYTES_PER_S, work[1] / work[2]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def sparse_library(m, x):
+    """torch.sparse.mm(m, x) in x's type, the one PyTorch call that computes
+    K7 (m the devox table as a CSR [N, V]) or K8 (its transpose [V, N])."""
+    m = m.to(x.dtype)
+    return lambda: torch.sparse.mm(m, x)
+
+
+def devox_csr(idx, w, n_vox):
+    """K7's table as a CSR matrix [N, V]: row p holds weight w[c, p] at
+    column idx[c, p] for each live corner c."""
+    hit = idx >= 0
+    pts = torch.arange(idx.shape[1], device=idx.device).expand_as(idx)[hit]
+    return torch.sparse_coo_tensor(
+        torch.stack([pts, idx[hit].long()]), w[hit],
+        (idx.shape[1], n_vox)).coalesce().to_sparse_csr()
+
+
+def devox_t_csr(tbl, n_points):
+    """K8's table, the CSR transpose K8 walks, as a CSR matrix [V, N]."""
+    nnz = int(tbl.t_ptr[-1])
+    return torch.sparse_csr_tensor(tbl.t_ptr, tbl.t_point[:nnz],
+                                   tbl.t_weight[:nnz],
+                                   (tbl.num_voxels, n_points))
+
+
+def case(kernel, label, kern, plain, args, work, zero_rows=None,
+         library=None):
+    """One kernel case: its wrapper and plain version on the same args,
+    the work that sets its bound, output rows that must be exactly 0 (or
+    None), and the one PyTorch call that computes the same (or None)."""
+    return dict(kernel=kernel, label=label, kern=kern, plain=plain,
+                args=args, work=work, zero_rows=zero_rows, library=library)
+
+
 def kernel_cases(pyr, gen):
-    """(kernel, label, wrapper, plain, args, zero_rows) at main-path
-    shapes: every channel pair the mk34 forward gives each kernel, on the
-    levels where it gives it, with seeded bf16 features (zero on padding
-    rows). zero_rows: output rows that must be exactly 0, or None."""
+    """The forward kernels' cases at main-path shapes: every channel pair
+    the mk34 forward gives each kernel, on the levels where it gives it,
+    with seeded bf16 features (zero on padding rows)."""
     from openpcseg_torch.ops import devox, subm_conv, updown
 
     def up_plain(x, w, km, plan):
@@ -216,47 +346,114 @@ def kernel_cases(pyr, gen):
     for level, cin, cout in SUBM_PAIRS:
         args = (feats(level, cin), weight(27, cin, cout),
                 pyr.levels[level].subm_kmap)
-        cases.append(("K1_subm_conv", f"L{level} {cin}->{cout}",
-                      subm_conv.subm_conv, subm_conv.subm_conv_plain, args,
-                      None))
+        cases.append(case("K1_subm_conv", f"L{level} {cin}->{cout}",
+                          subm_conv.subm_conv, subm_conv.subm_conv_plain,
+                          args, gemm_work(*args)))
     for level, c in DOWNS:
         args = (feats(level - 1, c), weight(8, c, c),
                 pyr.levels[level].down_kmap)
-        cases.append(("K3_down_conv", f"L{level - 1}->L{level} {c}->{c}",
-                      updown.down_conv, updown.down_conv_plain, args, None))
+        cases.append(case("K3_down_conv", f"L{level - 1}->L{level} {c}->{c}",
+                          updown.down_conv, updown.down_conv_plain, args,
+                          gemm_work(*args)))
     for level, cin, cout in UPS:
         plan = pyr.levels[level + 1].parity_plan
         args = (feats(level + 1, cin), weight(8, cin, cout),
                 pyr.levels[level].up_kmap, plan)
-        cases.append(("K4_up_conv", f"L{level + 1}->L{level} {cin}->{cout}",
-                      updown.up_conv, up_plain, args, parentless_rows(plan)))
+        cases.append(case("K4_up_conv", f"L{level + 1}->L{level} "
+                          f"{cin}->{cout}", updown.up_conv, up_plain, args,
+                          parent_work(args[0], args[1], plan),
+                          zero_rows=parentless_rows(plan)))
     for level, c in DEVOX:
         tbl = pyr.devox[level]
         args = (feats(level, c), tbl.idx, tbl.weights)
-        cases.append(("K7_devoxelize", f"L{level} C={c}",
-                      devox.devoxelize, devox.devoxelize_plain, args, None))
+        m = devox_csr(tbl.idx, tbl.weights, pyr.levels[level].capacity)
+        cases.append(case("K7_devoxelize", f"L{level} C={c}",
+                          devox.devoxelize, devox.devoxelize_plain, args,
+                          devox_work(*args),
+                          library=sparse_library(m, args[0])))
     return cases
 
 
-def times(kern, plain, args, on_device: bool) -> dict:
-    """CUDA-event ms per call of the kernel's wrapper and of its plain
-    version; with on_device (the parent gather, whose wrapper's host time
-    can exceed its kernel's) also their device ms under the profiler."""
-    t = dict(ms=cuda_ms(lambda: kern(*args), KERNEL_REPS),
-             plain_ms=cuda_ms(lambda: plain(*args), KERNEL_REPS))
-    if on_device:
-        t.update(device_ms=device_ms(lambda: kern(*args), KERNEL_REPS),
-                 plain_device_ms=device_ms(lambda: plain(*args),
-                                           KERNEL_REPS))
-    return t
+def _tuple(out):
+    return out if isinstance(out, tuple) else (out,)
 
 
-def times_text(row) -> str:
-    text = f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms"
-    if "device_ms" in row:
-        text += (f" (device {row['device_ms']:.4f} ms plain "
-                 f"{row['plain_device_ms']:.4f} ms)")
-    return text
+def check_cases(cases, tag):
+    """Each case's kernel against its plain version, per output, twice bit
+    for bit; then its times: CUDA-event ms per call of the wrapper and of
+    the plain version, the kernel's device ms under the profiler (CUDA
+    events read the host's enqueue once a kernel is this fast), its bound,
+    and the library call's ms where there is one."""
+    rows = []
+    for c in cases:
+        kern, plain, args = c["kern"], c["plain"], c["args"]
+        got, again = _tuple(kern(*args)), _tuple(kern(*args))
+        ref = _tuple(plain(*args))
+        torch.cuda.synchronize()
+        errs, scales, same = [], [], True
+        for g, a, r in zip(got, again, ref):
+            errs.append(float((g.float() - r.float()).abs().max()))
+            scales.append(float(r.float().abs().max()))
+            same = same and bool(torch.equal(g, a))
+        zeros = c["zero_rows"] is None or bool(
+            (got[0][c["zero_rows"]] == 0).all())
+        ok = same and zeros and all(
+            np.isfinite(e) and e <= KERNEL_TOL * max(sc, 1e-6)
+            for e, sc in zip(errs, scales))
+        bound_ms, bound_by = bound(c["work"])
+        row = dict(kernel=c["kernel"], shape=c["label"],
+                   max_abs_err=max(errs), errs=errs, max_abs_ref=scales,
+                   bit_identical=same, parentless_zero=zeros, ok=ok,
+                   ms=cuda_ms(lambda: kern(*args), KERNEL_REPS),
+                   plain_ms=cuda_ms(lambda: plain(*args), KERNEL_REPS),
+                   device_ms=device_ms(lambda: kern(*args), KERNEL_REPS),
+                   bytes=c["work"][0], operations=c["work"][1],
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        if c["library"] is not None:
+            lib_fn = c["library"]
+            lib_err = float((lib_fn().float() - ref[0].float()).abs().max())
+            row.update(library_ms=cuda_ms(lib_fn, KERNEL_REPS),
+                       library_device_ms=device_ms(lib_fn, KERNEL_REPS),
+                       library_max_abs_err=lib_err)
+        rows.append(row)
+        lib = ("" if row["library_ms"] is None else
+               f" library {row['library_ms']:.4f} ms (device "
+               f"{row['library_device_ms']:.4f})")
+        log(f"[{tag}] {c['kernel']:17s} {c['label']:25s} max|err|/max|ref| "
+            + " ".join(f"{e:.3e}/{sc:.3e}" for e, sc in zip(errs, scales))
+            + f" repeat {'bit-identical' if same else 'DIFFERS'}"
+            f"{'' if zeros else ' NONZERO parentless rows'} kernel "
+            f"{row['ms']:.4f} ms (device {row['device_ms']:.4f} ms, bound "
+            f"{bound_ms:.4f} ms by {bound_by}) plain {row['plain_ms']:.4f} "
+            f"ms{lib} {'ok' if ok else 'MISMATCH'}")
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise SystemExit(f"{tag}: {len(bad)} case(s) disagree with their "
+                         f"plain versions or do not repeat: {bad}")
+    return rows
+
+
+def log_occupancy(pyr):
+    """The launch configuration of the two gather kernels at the main-path
+    shapes (tile, dynamic shared memory, blocks per SM); ptxas's registers
+    are in the build log."""
+    from openpcseg_torch.ops import cuda_lib
+    if not hasattr(cuda_lib, "query"):    # a tree without the query
+        return
+    shapes = sorted({(lv, 27, ci, co) for lv, ci, co in SUBM_PAIRS}
+                    | {(lv, 8, c, c) for lv, c in DOWNS})
+    for lv, k, cin, cout in shapes:
+        n = pyr.levels[lv].capacity
+        bm, bn, smem, per_sm, rb, cb, bk = cuda_lib.query(
+            "opcs_gather_gemm_config", n, k, cin, cout)
+        log(f"[occupancy] gather_gemm L{lv} N {n} K {k} {cin}->{cout}: tile "
+            f"{bm} x {bn}, {bk} channels a step, {rb} x {cb} blocks, {smem} B "
+            f"shared, {per_sm} blocks per SM")
+    for ca, cb in sorted({(a, b) for _, a, b in SUBM_PAIRS}):
+        tm, tn, smem, per_sm = cuda_lib.query("opcs_gather_dw_config", ca,
+                                              cb)
+        log(f"[occupancy] gather_dw {ca} x {cb}: tile {tm} x {tn}, {smem} B "
+            f"shared, {per_sm} blocks per SM")
 
 
 def kernel_phase(task, gen, report):
@@ -268,34 +465,10 @@ def kernel_phase(task, gen, report):
     counts = pyr.level_counts.tolist()
     log(f"[kernels] pyramid of scan {SEED}: voxels per level {counts}, "
         f"caps {task.caps}")
+    log_occupancy(pyr)
     plan_phase(task, b, pyr, report)
-    rows = []
-    for name, label, kern, plain, args, zero_rows in kernel_cases(pyr, gen):
-        got, again = kern(*args), kern(*args)
-        ref = plain(*args).float()
-        torch.cuda.synchronize()
-        same = bool(torch.equal(got, again))
-        got = got.float()
-        err = float((got - ref).abs().max())
-        scale = float(ref.abs().max())
-        zeros = zero_rows is None or bool((got[zero_rows] == 0).all())
-        ok = (bool(np.isfinite(err)) and err <= KERNEL_TOL * max(scale, 1e-6)
-              and same and zeros)
-        row = dict(kernel=name, shape=label, max_abs_err=err,
-                   max_abs_ref=scale, bit_identical=same,
-                   parentless_zero=zeros, ok=ok,
-                   **times(kern, plain, args, zero_rows is not None))
-        rows.append(row)
-        log(f"[kernels] {name:14s} {label:18s} max|err| {err:.3e} "
-            f"(max|ref| {scale:.3e}) repeat "
-            f"{'bit-identical' if same else 'DIFFERS'}"
-            f"{'' if zeros else ' NONZERO parentless rows'} "
-            f"{times_text(row)} {'ok' if ok else 'MISMATCH'}")
+    rows = check_cases(kernel_cases(pyr, gen), "kernels")
     report["kernel_cases"] = rows
-    bad = [r for r in rows if not r["ok"]]
-    if bad:
-        raise SystemExit(f"kernel phase: {len(bad)} case(s) disagree with "
-                         f"their plain versions or do not repeat: {bad}")
     return rows
 
 
@@ -434,17 +607,32 @@ def _profiled(fn, calls):
 
 
 def device_ms(fn, reps: int) -> float:
-    """Device kernel time per call of fn() under torch.profiler. CUDA
-    events time a call from its first enqueue to its last kernel's end, so
-    where the host's enqueue takes longer than the kernels, as for the
-    parent gather, they read the host."""
-    return sum(r[2] for r in _device_rows(_profiled(fn, reps))) / reps
+    """Device kernel time per call of fn() under torch.profiler: the median
+    of three windows of `reps` calls. CUDA events time a call from its
+    first enqueue to its last kernel's end, so where the host's enqueue
+    takes longer than the kernels, as for the parent gather, they read the
+    host. Now and then the profiler drops some or all of a window's device
+    events: the median of three passes over a short window, and a window
+    with none at all is taken again (up to five times)."""
+    def window():
+        for _ in range(5):
+            rows = _device_rows(_profiled(fn, reps))
+            if rows:
+                return sum(r[2] for r in rows) / reps
+        raise SystemExit(f"profiler: no device time over {reps} calls, "
+                         f"five times")
+    return statistics.median(window() for _ in range(3))
 
 
 def profile_window(label, step, report):
     """Device time per kernel over one call of step() under torch.profiler
     (after one unprofiled call); returns the total device kernel ms."""
-    rows = _device_rows(_profiled(step, 1))
+    return _window(label, _profiled(step, 1), report)
+
+
+def _window(label, prof, report):
+    """Log and report a profile's device time per kernel; its total ms."""
+    rows = _device_rows(prof)
     if not rows:
         raise SystemExit(f"profiler: no device time recorded for {label}")
     rows.sort(key=lambda r: -r[2])
@@ -464,29 +652,176 @@ def profile_phase(task, report):
     from openpcseg_torch.engine.task import batch_to_device
 
     b = batch_to_device(raycast_batch(SEED + 1, 1, cap=N_POINTS), "cuda")
-    profile_window("eval_step", lambda: task.eval_step(b), report)
+    step_profile("eval_step", lambda: task.eval_step(b), report)
+
+
+# the kernels each wrapper family launches per call, by profiler name
+FAMILY_KERNELS = {"gather_gemm": ("gather_gemm_kernel",),
+                  "gather_dw": ("gather_dw_kernel", "sum_chunks_kernel"),
+                  "parent_gemm": ("parent_gemm_kernel",),
+                  "devox": ("devox_kernel",),
+                  "devox_bwd": ("devox_bwd_kernel",)}
+
+
+def _role(family, a):
+    """Which kernel row (K1-K8, and which pass of a backward) a wrapper
+    call with positional args `a` serves."""
+    if family == "gather_gemm":
+        return {"subm": "K1", "down": "K3", "subm_bwd": "K2 dfeats",
+                "up_bwd": "K5 dfeats"}[a[3]]
+    if family == "parent_gemm":
+        return {"up": "K4", "down_bwd": "K6 dfeats"}[a[3]]
+    if family == "gather_dw":
+        idx = a[1] if a[1] is not None else a[3]
+        return ("K2 dW" if idx.shape[0] == 27 else
+                "K6 dW" if a[1] is not None else "K5 dW")
+    return {"devox": "K7", "devox_bwd": "K8"}[family]
+
+
+def _kernels_of(family, a):
+    """The profiler names of the kernels one call launches, in order."""
+    from openpcseg_torch.ops.subm_conv import dw_chunks
+    names = FAMILY_KERNELS[family]
+    if family == "gather_dw":
+        idx = a[1] if a[1] is not None else a[3]
+        if dw_chunks(idx.shape[1], idx.shape[0], a[0].shape[1],
+                     a[2].shape[1])[1] == 1:
+            return names[:1]
+    return names
+
+
+@contextlib.contextmanager
+def noting_work(noted):
+    """Inside: each kernel wrapper call appends a dict to `noted`: its
+    family, role (_role), work, the kernels it launches, and (K7, K8) its
+    inputs, whose library call is timed afterwards."""
+    from openpcseg_torch.ops import devox, subm_conv, updown
+
+    def wrap(fn, family, work, n_args):
+        def noted_call(*a, **kw):
+            out = fn(*a, **kw)
+            noted.append(dict(
+                family=family, role=_role(family, a),
+                work=work(*a[:n_args]), kernels=_kernels_of(family, a),
+                args=a[:n_args] if family.startswith("devox") else None))
+            return out
+        return noted_call
+    patches = [(subm_conv, "gather_gemm", "gather_gemm", gemm_work, 3),
+               (updown, "gather_gemm", "gather_gemm", gemm_work, 3),
+               (subm_conv, "gather_dw", "gather_dw", dw_work, 4),
+               (updown, "gather_dw", "gather_dw", dw_work, 4),
+               (updown, "parent_gemm", "parent_gemm", parent_work, 3),
+               (devox, "devoxelize", "devox", devox_work, 3),
+               (devox, "devoxelize_bwd", "devox_bwd", devox_bwd_work, 2)]
+    saved = [(m, name, getattr(m, name)) for m, name, *_ in patches]
+    try:
+        for m, name, family, work, n_args in patches:
+            setattr(m, name, wrap(getattr(m, name), family, work, n_args))
+        yield
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+
+
+def _device_events(prof):
+    """Every device kernel of a profile, in the order it started."""
+    from torch.autograd import DeviceType
+    return sorted((e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+
+
+def step_profile(label, step, report):
+    """One call of step() with the wrappers noting their work, then the
+    profiler window over another (the same launches, in the same order).
+    Per kernel row (K1-K8, the passes of a backward apart): its launches
+    and device ms in the profile, each kernel event matched in order to the
+    call that launched it, beside the summed bound of those calls and, for
+    K7 and K8, the summed ms of the library call on the same inputs.
+    Returns the step's total device kernel ms."""
+    noted = []
+    with noting_work(noted):
+        step()
+    names = {k for c in noted for k in c["kernels"]}
+    for _ in range(3):  # a window that dropped device events is taken again
+        prof = _profiled(step, 1)
+        events = _device_events(prof)
+        counts = {name: (sum(name in e.name for e in events),
+                         sum(name in c["kernels"] for c in noted))
+                  for name in names}
+        if all(got == want for got, want in counts.values()):
+            break
+    else:
+        raise SystemExit(f"profiler: kernel events in {label} against the "
+                         f"calls that launched them, three times: {counts}")
+    total = _window(label, prof, report)
+    roles = {}
+    for c in noted:
+        r = roles.setdefault(c["role"], dict(
+            family=c["family"], calls=0, launches=0, device_ms=0.0,
+            bound_ms=0.0, library_ms=None))
+        r["calls"] += 1
+        r["bound_ms"] += bound(c["work"])[0]
+        if c["args"] is not None:
+            x, rest = c["args"][0], c["args"][1:]
+            m = (devox_csr(rest[0], rest[1], x.shape[0])
+                 if c["family"] == "devox" else devox_t_csr(rest[0],
+                                                            x.shape[0]))
+            ms = cuda_ms(sparse_library(m, x), KERNEL_REPS)
+            r["library_ms"] = (r["library_ms"] or 0.0) + ms
+    for name in names:
+        calls = [c["role"] for c in noted if name in c["kernels"]]
+        evs = [e for e in events if name in e.name]
+        for role, e in zip(calls, evs):
+            roles[role]["launches"] += 1
+            roles[role]["device_ms"] += e.time_range.elapsed_us() / 1e3
+    for role, r in sorted(roles.items()):
+        lib = ("" if r["library_ms"] is None else
+               f", library call {r['library_ms']:.4f} ms")
+        log(f"[profile] {label} {role:9s} ({r['family']}): device "
+            f"{r['device_ms']:.4f} ms over {r['launches']} kernels "
+            f"({r['calls']} calls), bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_ms'] / max(r['device_ms'], 1e-9):.1%}){lib}")
+    for family in FAMILY_KERNELS:
+        mine = [r for r in roles.values() if r["family"] == family]
+        if mine:
+            dev = sum(r["device_ms"] for r in mine)
+            bnd = sum(r["bound_ms"] for r in mine)
+            log(f"[profile] {label} {family} in all: device {dev:.4f} ms "
+                f"over {sum(r['launches'] for r in mine)} kernels, bound "
+                f"{bnd:.4f} ms ({bnd / max(dev, 1e-9):.1%})")
+    report[f"profile_{label}_kernels"] = roles
+    return total
 
 
 def backward_cases(pyr, gen):
-    """(kernel, label, wrapper, plain, args, zero_rows) of each backward
-    kernel at the shapes the mk34 training step gives it: upstream
-    gradients in float32 (zero on padding rows, as the masked forward
-    leaves them), saved bf16 activations, float32 weights. K6 also runs its
-    dfeats pass alone (label "... dfeats"), the parent gather with W^T
-    against the plain dfeats."""
+    """The backward kernels' cases at the shapes the mk34 training step
+    gives them: upstream gradients in float32 (zero on padding rows, as
+    the masked forward leaves them), saved bf16 activations, float32
+    weights. K2, K5 and K6 run whole (dfeats and dW) and each pass alone
+    (labels "... dfeats" and "... dW"), on the operands the whole backward
+    hands it: dout cast to bf16, W^T in bf16."""
     from openpcseg_torch.ops import devox, subm_conv, updown
     from openpcseg_torch.ops.sparse_conv import _conv_apply
+
+    bf, f32 = torch.bfloat16, torch.float32
 
     def down_bwd_plain(dout, feats, w, kmap, up_kmap, plan):
         return updown.down_conv_bwd_plain(dout, feats, w, kmap, up_kmap)
 
-    def dfeats(dout, w, up_kmap, plan):
-        return (updown.parent_gemm(dout.to(torch.bfloat16).contiguous(),
-                                   w.transpose(1, 2), plan, "down_bwd"),)
+    def gemm_plain(d16, wt, kmap_t):
+        return _conv_apply(d16, wt, kmap_t, None, bf)
 
-    def dfeats_plain(dout, w, up_kmap, plan):
-        return (_conv_apply(dout, w.transpose(1, 2), up_kmap, None,
-                            torch.bfloat16),)
+    # subm dfeats reads the map reversed; an A/B call also runs this script
+    # over the parent tree, whose gather-GEMM has no such flag: there it
+    # gets the flipped copy, made once outside the timing
+    if "reverse" in inspect.signature(subm_conv.gather_gemm).parameters:
+        def subm_dfeats(d16, wt, kmap, kmap_t):
+            return subm_conv.gather_gemm(d16, wt, kmap, "subm_bwd",
+                                         reverse=True)
+    else:
+        def subm_dfeats(d16, wt, kmap, kmap_t):
+            return subm_conv.gather_gemm(d16, wt, kmap_t, "subm_bwd")
 
     def rand(level, c, dtype):
         lv = pyr.levels[level]
@@ -497,88 +832,88 @@ def backward_cases(pyr, gen):
         return torch.randn(k, cin, cout, device="cuda",
                            generator=gen) / (k * cin) ** 0.5
 
-    bf, f32 = torch.bfloat16, torch.float32
+    def passes(name, label, dfeats, dfeats_plain, dfeats_args, dfeats_work,
+               dw_args, zero_rows=None):
+        """The dfeats pass alone and the dW pass alone."""
+        return [case(name, label + " dfeats", dfeats, dfeats_plain,
+                     dfeats_args, dfeats_work, zero_rows=zero_rows),
+                case(name, label + " dW", subm_conv.gather_dw,
+                     subm_conv.gather_dw_plain, dw_args, dw_work(*dw_args))]
+
     cases = []
     for level, cin, cout in SUBM_PAIRS:
         lv = pyr.levels[level]
-        args = (rand(level, cout, f32), rand(level, cin, bf),
-                weight(27, cin, cout), lv.subm_kmap)
-        cases.append(("K2_subm_conv_bwd", f"L{level} {cin}->{cout}",
-                      subm_conv.subm_conv_bwd, subm_conv.subm_conv_bwd_plain,
-                      args, None))
+        label = f"L{level} {cin}->{cout}"
+        d, x, w = rand(level, cout, f32), rand(level, cin, bf), weight(
+            27, cin, cout)
+        d16, wt = d.to(bf), w.transpose(1, 2).to(bf).contiguous()
+        km = lv.subm_kmap
+        gwork, dwargs = gemm_work(d16, wt, km), (x, km, d16, None)
+        cases.append(case("K2_subm_conv_bwd", label,
+                          subm_conv.subm_conv_bwd,
+                          subm_conv.subm_conv_bwd_plain, (d, x, w, km),
+                          both(gwork, dw_work(*dwargs))))
+        cases += passes("K2_subm_conv_bwd", label, subm_dfeats,
+                        lambda d16, wt, km, km_t: gemm_plain(d16, wt, km_t),
+                        (d16, wt, km, km.flip(0).contiguous()), gwork,
+                        dwargs)
     for level, c in DOWNS:
         fine, coarse = pyr.levels[level - 1], pyr.levels[level]
         plan = coarse.parity_plan
-        d, w = rand(level, c, f32), weight(8, c, c)
         label = f"L{level - 1}->L{level} {c}->{c}"
-        args = (d, rand(level - 1, c, bf), w, coarse.down_kmap, fine.up_kmap,
-                plan)
-        cases.append(("K6_down_conv_bwd", label, updown.down_conv_bwd,
-                      down_bwd_plain, args, None))
-        cases.append(("K6_down_conv_bwd", label + " dfeats", dfeats,
-                      dfeats_plain, (d, w, fine.up_kmap, plan),
-                      parentless_rows(plan)))
+        d, x, w = rand(level, c, f32), rand(level - 1, c, bf), weight(8, c, c)
+        d16, wt = d.to(bf), w.transpose(1, 2).to(bf).contiguous()
+        pwork = parent_work(d16, wt, plan)
+        dwargs = (x, coarse.down_kmap, d16, None)
+        cases.append(case("K6_down_conv_bwd", label, updown.down_conv_bwd,
+                          down_bwd_plain,
+                          (d, x, w, coarse.down_kmap, fine.up_kmap, plan),
+                          both(pwork, dw_work(*dwargs))))
+        cases += passes(
+            "K6_down_conv_bwd", label,
+            lambda d16, wt, uk, plan: updown.parent_gemm(d16, wt, plan,
+                                                         "down_bwd"),
+            lambda d16, wt, uk, plan: gemm_plain(d16, wt, uk),
+            (d16, wt, fine.up_kmap, plan), pwork, dwargs,
+            zero_rows=parentless_rows(plan))
     for level, cin, cout in UPS:
         fine, coarse = pyr.levels[level], pyr.levels[level + 1]
-        args = (rand(level, cout, f32), rand(level + 1, cin, bf),
-                weight(8, cin, cout), fine.up_kmap, coarse.down_kmap)
-        cases.append(("K5_up_conv_bwd", f"L{level + 1}->L{level} "
-                      f"{cin}->{cout}", updown.up_conv_bwd,
-                      updown.up_conv_bwd_plain, args, None))
+        label = f"L{level + 1}->L{level} {cin}->{cout}"
+        d, x, w = rand(level, cout, f32), rand(level + 1, cin, bf), weight(
+            8, cin, cout)
+        d16, wt = d.to(bf), w.transpose(1, 2).to(bf).contiguous()
+        dk = coarse.down_kmap
+        gwork, dwargs = gemm_work(d16, wt, dk), (x, None, d16, dk)
+        cases.append(case("K5_up_conv_bwd", label, updown.up_conv_bwd,
+                          updown.up_conv_bwd_plain,
+                          (d, x, w, fine.up_kmap, dk),
+                          both(gwork, dw_work(*dwargs))))
+        cases += passes(
+            "K5_up_conv_bwd", label,
+            lambda d16, wt, dk: subm_conv.gather_gemm(d16, wt, dk, "up_bwd"),
+            gemm_plain, (d16, wt, dk), gwork, dwargs)
     for level, c in DEVOX:
         tbl = pyr.devox[level]
         d = torch.randn(tbl.idx.shape[1], c, device="cuda", generator=gen)
         d = torch.where(pyr.points.valid[:, None], d, 0.0).to(bf)
-        cases.append(("K8_devoxelize_bwd", f"L{level} C={c}",
-                      lambda *a: (devox.devoxelize_bwd(*a),),
-                      lambda *a: (devox.devoxelize_bwd_plain(*a),),
-                      (d, tbl), None))
+        cases.append(case("K8_devoxelize_bwd", f"L{level} C={c}",
+                          devox.devoxelize_bwd, devox.devoxelize_bwd_plain,
+                          (d, tbl), devox_bwd_work(d, tbl),
+                          library=sparse_library(
+                              devox_t_csr(tbl, d.shape[0]), d)))
     return cases
 
 
 def backward_kernel_phase(task, gen, report):
     """Each backward kernel against its plain version, per output, and a
-    bit-identical repeat; CUDA-event times of the whole backward (and of
-    K6's dfeats pass alone)."""
+    bit-identical repeat, whole and pass by pass."""
     from openpcseg_torch.data.raycast import raycast_batch
     from openpcseg_torch.engine.task import batch_to_device
 
     b = batch_to_device(raycast_batch(SEED, 1, cap=N_POINTS), "cuda")
     _, pyr = task.preprocess(b)
-    rows = []
-    for name, label, kern, plain, args, zero_rows in backward_cases(pyr,
-                                                                    gen):
-        got, again, ref = kern(*args), kern(*args), plain(*args)
-        torch.cuda.synchronize()
-        errs, scales, same = [], [], True
-        for g, a, r in zip(got, again, ref):
-            errs.append(float((g.float() - r.float()).abs().max()))
-            scales.append(float(r.float().abs().max()))
-            same = same and bool(torch.equal(g, a))
-        zeros = zero_rows is None or bool((got[0][zero_rows] == 0).all())
-        ok = same and zeros and all(
-            np.isfinite(e) and e <= KERNEL_TOL * max(sc, 1e-6)
-            for e, sc in zip(errs, scales))
-        row = dict(kernel=name, shape=label, max_abs_err=max(errs),
-                   errs=errs, max_abs_ref=scales,
-                   max_rel_err=max(e / max(sc, 1e-30)
-                                   for e, sc in zip(errs, scales)),
-                   bit_identical=same, parentless_zero=zeros, ok=ok,
-                   **times(kern, plain, args, zero_rows is not None))
-        rows.append(row)
-        outs = " ".join(f"{o} {e:.3e}/{sc:.3e}" for o, e, sc in
-                        zip(("dvox",) if name.startswith("K8") else
-                            ("dfeats", "dW"), errs, scales))
-        log(f"[bwd] {name:17s} {label:25s} max|err|/max|ref| {outs} "
-            f"repeat {'bit-identical' if same else 'DIFFERS'}"
-            f"{'' if zeros else ' NONZERO parentless rows'} "
-            f"{times_text(row)} {'ok' if ok else 'MISMATCH'}")
+    rows = check_cases(backward_cases(pyr, gen), "bwd")
     report["backward_cases"] = rows
-    bad = [r for r in rows if not r["ok"]]
-    if bad:
-        raise SystemExit(f"backward-kernel phase: {len(bad)} case(s) "
-                         f"disagree with their plain versions or do not "
-                         f"repeat: {bad}")
     return rows
 
 
@@ -631,11 +966,10 @@ def training_phase(report):
     report.update(train_steps=steps, train_median_ms=med,
                   train_scans_per_s=1e3 / med, train_launches=totals)
     b = batch_to_device(scan, "cuda")
-    device_ms = profile_window("train_step", lambda: task.train_step(b),
-                               report)
-    idle = 1.0 - device_ms / med
+    step_ms = step_profile("train_step", lambda: task.train_step(b), report)
+    idle = 1.0 - step_ms / med
     log(f"[profile] train_step device idle share {idle:.4f} (device "
-        f"{device_ms:.3f} ms of the {med:.3f} ms median step)")
+        f"{step_ms:.3f} ms of the {med:.3f} ms median step)")
     report["train_idle_share"] = idle
     return totals
 
@@ -688,32 +1022,55 @@ def train_reference_phase(report):
 
 def kernel_report(rows, launches):
     """The kernels JSON line: per kernel its launches on the main path and
-    the case with the slowest plain version; K6 also its dfeats pass alone
-    (the parent gather), K4 and that pass their device times too."""
+    the case with the slowest plain version (the whole backward for K2, K5
+    and K6, beside the device times of their heaviest dfeats and dW passes
+    alone), with its bound and, for K7 and K8, the library call's time."""
     kernels = []
     for name, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
-        whole = [r for r in mine if not r["shape"].endswith(" dfeats")]
+        whole = [r for r in mine
+                 if not r["shape"].endswith((" dfeats", " dW"))]
         heavy = max(whole, key=lambda r: r["plain_ms"])
         row = dict(
             name=name, route=meta["route"], source=meta["source"],
             replaces=meta["replaces"], launches=launches[meta["counter"]],
             max_abs_err=max(r["max_abs_err"] for r in mine),
-            ms=heavy["ms"], plain_ms=heavy["plain_ms"], shape=heavy["shape"])
-        row.update({k: heavy[k] for k in ("device_ms", "plain_device_ms")
-                    if k in heavy})
+            ms=heavy["ms"], plain_ms=heavy["plain_ms"],
+            device_ms=heavy["device_ms"], bound_ms=heavy["bound_ms"],
+            bound_by=heavy["bound_by"], library_ms=heavy["library_ms"],
+            shape=heavy["shape"])
         if "dfeats_source" in meta:
             row.update(dfeats_source=meta["dfeats_source"],
                        dw_launches=launches["dw"])
-        part = [r for r in mine if r["shape"].endswith(" dfeats")]
-        if part:   # K6: its dfeats pass (the parent gather) alone
-            h = max(part, key=lambda r: r["plain_ms"])
-            row.update(dfeats_ms=h["ms"], dfeats_plain_ms=h["plain_ms"],
-                       dfeats_device_ms=h["device_ms"],
-                       dfeats_plain_device_ms=h["plain_device_ms"],
-                       dfeats_shape=h["shape"])
+        for part in ("dfeats", "dW"):
+            alone = [r for r in mine if r["shape"].endswith(" " + part)]
+            if alone:
+                h = max(alone, key=lambda r: r["device_ms"])
+                row.update({f"{part}_device_ms": h["device_ms"],
+                            f"{part}_bound_ms": h["bound_ms"],
+                            f"{part}_shape": h["shape"]})
         kernels.append(row)
     return kernels
+
+
+def ptxas_summary(text):
+    """One line per kernel instance of ptxas -v output: the kernel, its
+    template integers, registers, spills and static shared memory."""
+    out, name, spills = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"entry function '(.*)'", line)
+        if m:
+            mangled = m.group(1)
+            kern = re.search(r"([a-z_]+_kernel)", mangled).group(1)
+            targs = (["bf16"] if "bfloat16" in mangled else
+                     ["f32"] if kern + "If" in mangled else [])
+            targs += re.findall(r"Li(\d+)E", mangled)
+            name = kern + (f"<{','.join(targs)}>" if targs else "")
+        elif "spill" in line and name:
+            spills = line.strip()
+        elif "registers" in line and name:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spills}")
+    return out
 
 
 def main() -> int:
@@ -721,6 +1078,10 @@ def main() -> int:
     ap.add_argument("--report", type=Path,
                     default=ROOT / "build" / "openpcseg_torch" /
                     "chip_smoke.json", help="where the full JSON report goes")
+    ap.add_argument("--cases-only", action="store_true",
+                    help="build, run the forward and backward kernel cases "
+                    "(checks and times) and stop: the part of an A/B call "
+                    "that compares kernels; prints no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -744,15 +1105,21 @@ def main() -> int:
     log(f"[build] nvcc sm_90a build of {cuda_lib.CSRC.name}/*.cu: "
         f"{time.perf_counter() - t0:.2f} s (nvcc {cuda_lib.BUILD_INFO['seconds']:.2f} s, "
         f"cached {cuda_lib.BUILD_INFO['cached']}) -> {cuda_lib.BUILD_INFO['path']}")
-    for line in cuda_lib.BUILD_INFO.get("ptxas", "").splitlines():
-        if "registers" in line:
-            log(f"[build] ptxas:{line.split(':', 1)[1]}")
+    for line in ptxas_summary(cuda_lib.BUILD_INFO.get("ptxas", "")):
+        log(f"[build] ptxas {line}")
     report["build_s"] = cuda_lib.BUILD_INFO["seconds"]
 
     task = SegTask(CFGS, NUM_CLASS, device="cuda",
                    compute_dtype=torch.bfloat16, seed=SEED)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = kernel_phase(task, gen, report)
+    if args.cases_only:
+        rows += backward_kernel_phase(task, gen, report)
+        args.report.parent.mkdir(parents=True, exist_ok=True)
+        args.report.write_text(json.dumps(report, indent=1))
+        log(f"[cases] {len(rows)} kernel cases agree with their plain "
+            f"versions; report in {args.report}")
+        return 0
     launches = serving_phase(task, report)
     reference_phase(report)
     profile_phase(task, report)

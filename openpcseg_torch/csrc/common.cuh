@@ -40,4 +40,28 @@ __host__ __device__ __forceinline__ int ceil_div(int a, int b) {
   return (a + b - 1) / b;
 }
 
+// 16-byte asynchronous copy global -> shared; with full == false the
+// src-size is 0: the 16 bytes are zero-filled and gmem is not read.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Raise a kernel's dynamic shared-memory cap to `bytes` (needed above
+// 48 KB).
+template <typename Kernel>
+__host__ int set_smem_cap(Kernel kernel, size_t bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 }  // namespace opcs

@@ -73,20 +73,9 @@ __host__ __device__ constexpr size_t smem_bytes(int nf) {
              : (size_t)BM * c_ld(nf) * 4;
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool full) {
-  // src-size 0 zero-fills the 16 bytes without reading gmem
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(full ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+using opcs::cp_async16;
+using opcs::cp_async_commit;
+using opcs::cp_async_wait;
 
 // NF: 16-column wmma fragments per warp; the block covers BN = 32 * NF
 // output channels from column col0 = blockIdx.y * BN.

@@ -58,17 +58,23 @@ class SegTask:
     weights are drawn from a torch.Generator seeded with `seed`, and so is
     dropout (a generator on `device`); load trained or converted weights
     into ``task.model`` afterwards. Without an OPTIM block the task only
-    evaluates."""
+    evaluates. The task runs on the card unless `device` says otherwise;
+    without a card, a CUDA device raises here (the plain versions run only
+    where the caller asks for the CPU)."""
 
     def __init__(self, cfgs: Dict[str, Any], num_class: int, *,
                  compute_dtype: torch.dtype = torch.float32,
-                 device="cpu", voxel_cap_per_scan: Optional[int] = None,
+                 device="cuda", voxel_cap_per_scan: Optional[int] = None,
                  seed: int = 0, batch_per_device: int = 1,
                  num_devices: int = 1, iters_per_epoch: int = 1000,
                  total_epochs: Optional[int] = None):
         self.cfgs = cfgs
         self.num_class = num_class
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"SegTask: device {self.device} asked for, but torch sees no "
+                f"CUDA device (pass device='cpu' to run on the CPU)")
         self.compute_dtype = compute_dtype
         if cfgs.get("MODALITY", "voxel") != "voxel":
             raise NotImplementedError("only the voxel modality is ported")

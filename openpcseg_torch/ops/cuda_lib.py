@@ -43,7 +43,9 @@ PLAIN_ON_CUDA = dict.fromkeys(COUNTERS, 0)
 
 # name -> number of pointer arguments before the int arguments
 _SIGNATURES = {
-    "opcs_gather_gemm_bf16": (4, 4),   # feats, w, kmap, out | n_out, K, cin, cout
+    # feats, w, kmap, out, partial, counters
+    #   | n_out, K, cin, cout, reverse, splits
+    "opcs_gather_gemm_bf16": (6, 6),
     # src, w, src_rows, dst_rows, group_off, tile_off, out
     #   | cin, cout, max_tiles, tile_rows
     "opcs_parent_gemm_bf16": (7, 4),
@@ -53,6 +55,12 @@ _SIGNATURES = {
     "opcs_gather_dw_bf16": (6, 6),
     "opcs_devox_bwd_bf16": (5, 2),     # dout, ptr, point, w, dvox | n_vox, c
     "opcs_devox_bwd_f32": (5, 2),
+}
+# launch-configuration queries: name -> (number of int arguments, length of
+# the int info array they fill); no stream, no launch
+_QUERIES = {
+    "opcs_gather_gemm_config": (4, 7),   # n_out, K, cin, cout
+    "opcs_gather_dw_config": (2, 4),     # ca, cb
 }
 
 _LIB = None
@@ -139,8 +147,23 @@ def lib() -> ctypes.CDLL:
             fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
+        for name, (n_int, _) in _QUERIES.items():
+            fn = getattr(so, name)
+            fn.argtypes = [ctypes.c_int] * n_int + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         _LIB = so
     return _LIB
+
+
+def query(name: str, *args) -> list:
+    """The launch configuration a kernel's entry picks for these shapes
+    (tile, dynamic shared memory, blocks per SM, ...): see the entry's
+    comment in csrc. Launches nothing."""
+    info = (ctypes.c_int * _QUERIES[name][1])()
+    err = getattr(lib(), name)(*args, ctypes.addressof(info))
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err}")
+    return list(info)
 
 
 def launch(name: str, counter: str, *args) -> None:

@@ -7,10 +7,11 @@ Counterpart of ``openpcseg_tpu/ops/pallas_conv.py``:
   version is ``ops.sparse_conv._conv_apply`` with the identity centre.
 - K2, the fused backward kernel ``_bwd_kernel`` (via ``_run_bwd`` from
   ``_core_bwd``), becomes two launches: dfeats is K1's gather-GEMM over the
-  offset-reversed map ``kmap.flip(0)`` with ``W[k]^T`` (``kmap_t[k] =
-  kmap[K-1-k]`` pairs with ``W[k]^T``, not ``W[K-1-k]^T``), and dW is the
-  gathered weight gradient of ``csrc/gather_dw.cu``. Its plain version is
-  ``ops.sparse_conv._core_bwd``.
+  offset-reversed map with ``W[k]^T`` (``kmap_t[k] = kmap[K-1-k]`` pairs
+  with ``W[k]^T``, not ``W[K-1-k]^T``; the kernel reads the map reversed,
+  so no flipped copy is made), and dW is the gathered weight gradient of
+  ``csrc/gather_dw.cu``. Its plain version is ``ops.sparse_conv._core_bwd``
+  over ``kmap.flip(0)``.
 
 ``SubmConvFn`` is the autograd Function over both. The sources say what
 bounds each kernel on the H100 and what the design does about it. Unlike
@@ -27,18 +28,46 @@ import torch
 from . import cuda_lib
 from .sparse_conv import _acc, _conv_apply, _core_bwd, _gather_rows
 
-# gather_dw grid sizing: enough blocks to fill the card's 132 SMs several
-# times over, a bounded float32 partial buffer, and at least 256 rows per
-# chunk (at L3 384->256 with K = 27 one chunk of partials is 10.6 MB)
-DW_TARGET_BLOCKS = 132 * 8
-DW_PARTIAL_BYTES = 64 << 20
+# gather_dw grid sizing: the blocks' work is uneven (the submanifold map's
+# centre offset pairs every row, the others a fifth to a third of them, and
+# the padding rows none), so the grid aims at eight waves of two blocks on
+# each of the card's 132 SMs; the float32 partials, written and read once
+# more, are held to 64 MB for the 27-offset maps and 20 MB for the 8-offset
+# ones, whose blocks have less work to spread; and a chunk has at least 256
+# rows. (Chosen by sweeping the chunk count on the H100 at the main-path
+# shapes: fewer chunks leave the long blocks alone on the card, more spend
+# the time on partials.)
+DW_TARGET_BLOCKS = 132 * 2 * 8
 DW_MIN_ROWS = 256
 
 
+def dw_partial_bytes(num_k: int) -> int:
+    return (64 << 20) if num_k > 8 else (20 << 20)
+
+
+# gather-GEMM split over offsets: on the small levels (fewer than 256 row
+# tiles of 128, where csrc/gather_gemm.cu takes 64-row tiles) few tiles
+# carry voxels while each walks its K offsets x Cin channels in series, so
+# a tile's live offsets are divided among up to GEMM_MAX_SPLITS blocks, one
+# per GEMM_SPLIT_WORK offset-channels
+GEMM_MAX_SPLITS = 4
+GEMM_SPLIT_WORK = 2048
+
+
+def gemm_splits(n_out: int, num_k: int, cin: int) -> int:
+    """Blocks that share one output tile of the gather-GEMM (its `splits`
+    argument), from the shapes alone."""
+    if math.ceil(n_out / 128) >= 256:
+        return 1
+    return min(GEMM_MAX_SPLITS, math.ceil(num_k * cin / GEMM_SPLIT_WORK))
+
+
 def gather_gemm(feats: torch.Tensor, weights: torch.Tensor,
-                kmap: torch.Tensor, counter: str) -> torch.Tensor:
-    """Launch the gather-GEMM: out[n] = sum_k feats[kmap[k,n]] @ W[k],
-    float32 [N_out, Cout]. bf16 feats; weights are cast to bf16."""
+                kmap: torch.Tensor, counter: str,
+                reverse: bool = False) -> torch.Tensor:
+    """Launch the gather-GEMM: out[n] = sum_k feats[kmap[k',n]] @ W[k],
+    float32 [N_out, Cout], with k' = k, or K-1-k where `reverse` is set.
+    bf16 feats; weights are cast to bf16."""
     dev = feats.device
     k, cin, cout = weights.shape
     w = weights.to(torch.bfloat16).contiguous()
@@ -50,17 +79,33 @@ def gather_gemm(feats: torch.Tensor, weights: torch.Tensor,
                          f"{tuple(weights.shape)}, kmap {tuple(kmap.shape)}")
     n_out = kmap.shape[1]
     out = torch.empty((n_out, cout), dtype=torch.float32, device=dev)
+    splits = gemm_splits(n_out, k, cin)
+    partial = counters = None
+    if splits > 1:
+        partial = torch.empty((splits, n_out, cout), dtype=torch.float32,
+                              device=dev)
+        counters = torch.zeros(math.ceil(n_out / 64) * math.ceil(cout / 32),
+                               dtype=torch.int32, device=dev)
     cuda_lib.launch("opcs_gather_gemm_bf16", counter, feats.data_ptr(),
-                    w.data_ptr(), kmap.data_ptr(), out.data_ptr(), n_out, k,
-                    cin, cout)
+                    w.data_ptr(), kmap.data_ptr(), out.data_ptr(),
+                    None if partial is None else partial.data_ptr(),
+                    None if counters is None else counters.data_ptr(), n_out,
+                    k, cin, cout, int(reverse), splits)
     return out
+
+
+def dw_tile(ca: int, cb: int):
+    """(TM, TN) of the gather_dw block for widths (Ca, Cb), as
+    csrc/gather_dw.cu launch_of picks it: TM = 32..128, TN = 64 or 128."""
+    return 32 * min(math.ceil(ca / 32), 4), 64 * min(math.ceil(cb / 64), 2)
 
 
 def dw_chunks(n: int, num_k: int, ca: int, cb: int):
     """(rows_per_chunk, n_chunks) of the gather_dw reduction over n rows."""
-    tiles = math.ceil(ca / 64) * math.ceil(cb / 64)
+    tm, tn = dw_tile(ca, cb)
+    tiles = math.ceil(ca / tm) * math.ceil(cb / tn)
     want = math.ceil(DW_TARGET_BLOCKS / (num_k * tiles))
-    cap = DW_PARTIAL_BYTES // (num_k * ca * cb * 4)
+    cap = dw_partial_bytes(num_k) // (num_k * ca * cb * 4)
     n_chunks = max(1, min(want, cap, n // DW_MIN_ROWS))
     rows = math.ceil(n / n_chunks / 32) * 32
     return rows, math.ceil(n / rows)
@@ -144,8 +189,8 @@ def subm_conv_bwd(dout: torch.Tensor, feats: torch.Tensor,
     d16 = dout.to(torch.bfloat16).contiguous()
     dfeats = None
     if need_dfeats:
-        dfeats = gather_gemm(d16, weights.transpose(1, 2), kmap.flip(0),
-                             "subm_bwd")
+        dfeats = gather_gemm(d16, weights.transpose(1, 2), kmap, "subm_bwd",
+                             reverse=True)
     return dfeats, gather_dw(feats, kmap, d16, None)
 
 

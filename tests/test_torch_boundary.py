@@ -1,6 +1,7 @@
 """Boundaries of the port: what it imports, the config chip_smoke.py drives,
 and that a wrapper handed a CUDA tensor never falls back to its plain
 version when the kernel library cannot be built."""
+import inspect
 import subprocess
 import sys
 from pathlib import Path
@@ -12,6 +13,7 @@ import yaml
 
 from openpcseg_torch.core.geometry import build_parity_plan
 from openpcseg_torch.core.tensor import DevoxTable
+from openpcseg_torch.engine.task import SegTask
 from openpcseg_torch.ops import cuda_lib, devox, subm_conv, updown
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -55,6 +57,20 @@ def test_chip_smoke_model_is_the_mk34_cr10_config():
     assert (chip_smoke.CFGS["TPU"]["VOXEL_CAP_PER_SCAN"]
             == cfg["TPU"]["VOXEL_CAP_PER_SCAN"])
     assert chip_smoke.N_POINTS == cfg["TPU"]["POINT_CAP_PER_SCAN"]
+
+
+def test_segtask_targets_the_card_by_default():
+    """SegTask without `device` asks for "cuda": with a card its device is
+    the card; without one it raises, and never returns a CPU task."""
+    cfgs = {"DATA": {"VOXEL_SIZE": 0.05},
+            "MODEL": {"NAME": "MinkUNet", "BLOCK": "ResBlock"}}
+    assert inspect.signature(SegTask).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        assert SegTask(cfgs, 20).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            SegTask(cfgs, 20)
+    assert SegTask(cfgs, 20, device="cpu").device.type == "cpu"
 
 
 class _CudaFlagged(torch.Tensor):

@@ -26,6 +26,13 @@ from openpcseg_torch.ops.voxelize import _devox_bwd
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-2
+# every (level, Cin, Cout) of the mk34 subm convs and (coarse level, C) of
+# its down convs, as chip_smoke.py runs them
+SUBM_PAIRS = [(0, 4, 32), (0, 32, 32), (1, 32, 32), (2, 32, 64), (2, 64, 64),
+              (3, 64, 128), (3, 128, 128), (4, 128, 256), (4, 256, 256),
+              (3, 384, 256), (3, 256, 256), (2, 192, 128), (2, 128, 128),
+              (1, 128, 96), (1, 96, 96), (0, 128, 96), (0, 96, 96)]
+DOWNS = [(1, 32), (2, 32), (3, 64), (4, 128)]
 
 
 @pytest.fixture(scope="module")
@@ -57,26 +64,123 @@ def _close(got, ref):
     assert torch.isfinite(err) and err <= TOL * ref.float().abs().max(), err
 
 
-@pytest.mark.parametrize("level,cin,cout", [(0, 4, 32), (1, 96, 96),
-                                            (3, 384, 256)])
+def _twice(fn, *args, **kw):
+    """Two calls, which must agree bit for bit (no atomics anywhere)."""
+    got, again = fn(*args, **kw), fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    return got
+
+
+@pytest.mark.parametrize("level,cin,cout", SUBM_PAIRS)
 def test_subm_kernel(pyr, level, cin, cout):
     g = torch.Generator(device="cuda").manual_seed(0)
     lv = pyr.levels[level]
     x = _feats(lv, cin, g)
     w = _rand(27, cin, cout, gen=g)
     n = cuda_lib.LAUNCHES["subm"]
-    _close(subm_conv.subm_conv(x, w, lv.subm_kmap),
+    _close(_twice(subm_conv.subm_conv, x, w, lv.subm_kmap),
            subm_conv.subm_conv_plain(x, w, lv.subm_kmap))
-    assert cuda_lib.LAUNCHES["subm"] == n + 1
+    assert cuda_lib.LAUNCHES["subm"] == n + 2
 
 
-@pytest.mark.parametrize("level,c", [(1, 32), (4, 128)])
+@pytest.mark.parametrize("level,c", DOWNS)
 def test_down_kernel(pyr, level, c):
     g = torch.Generator(device="cuda").manual_seed(1)
     x = _feats(pyr.levels[level - 1], c, g)
     w = _rand(8, c, c, gen=g)
     km = pyr.levels[level].down_kmap
-    _close(updown.down_conv(x, w, km), updown.down_conv_plain(x, w, km))
+    _close(_twice(updown.down_conv, x, w, km),
+           updown.down_conv_plain(x, w, km))
+
+
+@pytest.mark.parametrize("level,c", [(0, 32), (1, 96), (3, 256)])
+def test_gather_gemm_reverse_flag(pyr, level, c):
+    """The reversed read of the map equals the kernel over a flipped copy,
+    bit for bit, and the plain version over that copy."""
+    g = torch.Generator(device="cuda").manual_seed(10)
+    lv = pyr.levels[level]
+    x = _feats(lv, c, g)
+    w = _rand(27, c, c, gen=g)
+    flipped = lv.subm_kmap.flip(0).contiguous()
+    got = _twice(subm_conv.gather_gemm, x, w, lv.subm_kmap, "subm_bwd",
+                 reverse=True)
+    assert torch.equal(got, subm_conv.gather_gemm(x, w, flipped, "subm_bwd"))
+    _close(got, _conv_apply(x, w, flipped, None, torch.bfloat16))
+
+
+# ragged widths: Cin 4 and 12 (element loads), Cout 18 (element loads and
+# stores), Cout 300 (element loads of W, two column blocks past 256)
+@pytest.mark.parametrize("cin,cout", [(4, 32), (12, 18), (256, 300)])
+def test_gather_gemm_edges(pyr, cin, cout):
+    g = torch.Generator(device="cuda").manual_seed(11)
+    lv = pyr.levels[1]
+    x = _feats(lv, cin, g)
+    w = _rand(27, cin, cout, gen=g)
+    _close(_twice(subm_conv.subm_conv, x, w, lv.subm_kmap),
+           subm_conv.subm_conv_plain(x, w, lv.subm_kmap))
+
+
+def test_gather_gemm_all_padding_tiles(pyr):
+    """Tiles without a single hit write exact zeros: a map whose last 300
+    columns all miss, and a map that misses everywhere."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    lv = pyr.levels[1]
+    x = _feats(lv, 64, g)
+    w = _rand(27, 64, 96, gen=g)
+    km = torch.cat([lv.subm_kmap[:, :200],
+                    torch.full((27, 300), -1, dtype=torch.int32,
+                               device="cuda")], 1).contiguous()
+    got = _twice(subm_conv.gather_gemm, x, w, km, "subm")
+    _close(got, _conv_apply(x, w, km, None, torch.bfloat16))
+    assert (got[200:] == 0).all() and got[:200].abs().max() > 0
+    none = torch.full_like(km, -1)
+    assert (subm_conv.gather_gemm(x, w, none, "subm") == 0).all()
+
+
+def _dw_check(a, ia, b, ib):
+    n = cuda_lib.LAUNCHES["dw"]
+    _close(_twice(subm_conv.gather_dw, a, ia, b, ib),
+           subm_conv.gather_dw_plain(a, ia, b, ib))
+    assert cuda_lib.LAUNCHES["dw"] == n + 2
+
+
+@pytest.mark.parametrize("side", ["a", "b"])
+def test_dw_identity_side(pyr, side):
+    """K2's form (A gathered, B the identity) and K5's (A the identity, B
+    gathered by the coarse level's down map)."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    fine, coarse = pyr.levels[0], pyr.levels[1]
+    if side == "b":
+        _dw_check(_feats(fine, 32, g), fine.subm_kmap, _feats(fine, 32, g),
+                  None)
+    else:
+        _dw_check(_feats(coarse, 96, g), None, _feats(fine, 96, g),
+                  coarse.down_kmap)
+
+
+@pytest.mark.parametrize("drop", ["a", "b", "both"])
+def test_dw_drops_misses_on_either_side(pyr, drop):
+    """Two maps, with -1 on A's side, on B's, or on both, at other rows."""
+    g = torch.Generator(device="cuda").manual_seed(14)
+    lv = pyr.levels[1]
+    km = lv.subm_kmap
+
+    def holes(m):
+        cut = torch.rand(m.shape, device="cuda", generator=g) < 0.3
+        return torch.where(cut, torch.full_like(m, -1), m).contiguous()
+    ia = holes(km) if drop in ("a", "both") else km
+    ib = holes(km.flip(0)) if drop in ("b", "both") else km.flip(0)
+    _dw_check(_feats(lv, 64, g), ia, _feats(lv, 96, g), ib.contiguous())
+
+
+# the widest tiles and more tiles than one: 256 x 256 (two by two) and
+# 384 x 256 (three by two, one chunk)
+@pytest.mark.parametrize("level,ca,cb", [(4, 256, 256), (3, 384, 256)])
+def test_dw_wide(pyr, level, ca, cb):
+    g = torch.Generator(device="cuda").manual_seed(15)
+    lv = pyr.levels[level]
+    _dw_check(_feats(lv, ca, g), lv.subm_kmap, _feats(lv, cb, g), None)
 
 
 def _parent_check(got, again, ref, plan):

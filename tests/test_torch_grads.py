@@ -35,10 +35,14 @@ from openpcseg_torch.core.tensor import DevoxTable
 from openpcseg_torch.ops import cuda_lib, subm_conv, updown
 from openpcseg_torch.ops.devox import DevoxFn
 from openpcseg_torch.ops.sparse_conv import _conv_apply
-from openpcseg_torch.ops.subm_conv import SubmConvFn, gather_dw_plain
+from openpcseg_torch.data.raycast import raycast_batch
+from openpcseg_torch.engine.task import SegTask, batch_to_device
+from openpcseg_torch.ops.subm_conv import (SubmConvFn, dw_chunks,
+                                           gather_dw_plain)
 from openpcseg_torch.ops.updown import DownConvFn, UpConvFn
 from openpcseg_torch.ops.voxelize import _devox_bwd, devox_transpose_table
 from openpcseg_tpu.ops import kernel_offsets
+from openpcseg_tpu.ops.sparse_conv import _core_bwd as jx_core_bwd
 from openpcseg_tpu.ops.sparse_conv import (sparse_conv, sparse_conv_up2,
                                            window_subm_conv)
 from openpcseg_tpu.ops.voxelize import _devox_apply as jx_devox_apply
@@ -232,9 +236,10 @@ def _plain(t):
 def plain_launchers(monkeypatch):
     """The kernel launchers replaced by plain float32 equivalents; the
     parent gather by its tiled formulation over the parity plan."""
-    def gemm(feats, w, kmap, counter):         # gather_gemm
+    def gemm(feats, w, kmap, counter, reverse=False):   # gather_gemm
+        kmap = kmap.as_subclass(torch.Tensor)
         return _conv_apply(_plain(feats), _plain(w),
-                           kmap.as_subclass(torch.Tensor), None,
+                           kmap.flip(0) if reverse else kmap, None,
                            torch.float32)
 
     def parent(src, w, plan, counter):         # parent_gemm
@@ -291,3 +296,115 @@ def test_cuda_branch_formulation(rng, plain_launchers, kind):
     for g, r in zip(got, want):
         np.testing.assert_allclose(_plain(g).numpy(), r.numpy(), rtol=1e-4,
                                    atol=1e-4)
+
+
+def test_subm_bwd_reads_the_map_reversed_without_a_copy(rng, monkeypatch):
+    """K2 on the card: the dfeats launch gets the original map and the
+    reverse flag (no flipped copy), the dW launch the same map."""
+    calls = []
+    monkeypatch.setattr(cuda_lib, "check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(cuda_lib, "launch",
+                        lambda name, counter, *a: calls.append((name, a)))
+    kmap = torch.full((27, 16), -1, dtype=torch.int32)
+    f = _flag(torch.zeros(16, 8, dtype=torch.bfloat16))
+    subm_conv.subm_conv_bwd(_flag(torch.zeros(16, 12)), f,
+                            torch.zeros(27, 8, 12), kmap)
+    (gemm, g), (dw, d) = calls
+    assert gemm == "opcs_gather_gemm_bf16" and dw == "opcs_gather_dw_bf16"
+    assert g[2] == kmap.data_ptr() and g[6:] == (16, 27, 12, 8, 1, 1)
+    assert d[1] == kmap.data_ptr() and d[3] is None
+
+
+# ------------------------------------------------ the dW kernel's order --
+
+def compacted_dw(a, ia, b, ib, rows, n_chunks, tk=32, seg=2048):
+    """csrc/gather_dw.cu's order in plain float32: for each offset and each
+    chunk of `rows` rows, the live pairs (both indices >= 0) of each
+    segment of `seg` rows in row order, summed `tk` pairs a step into the
+    chunk's partial; the partials then summed in chunk order."""
+    idx = ia if ia is not None else ib
+    num_k, n = idx.shape
+    ident = torch.arange(n, dtype=torch.int32)
+    out = torch.zeros(num_k, a.shape[1], b.shape[1])
+    for k in range(num_k):
+        ra = ident if ia is None else ia[k]
+        rb = ident if ib is None else ib[k]
+        total = torch.zeros_like(out[k])
+        for c in range(n_chunks):
+            part = torch.zeros_like(total)
+            for s0 in range(c * rows, min(n, (c + 1) * rows), seg):
+                sl = slice(s0, min(n, (c + 1) * rows, s0 + seg))
+                live = (ra[sl] >= 0) & (rb[sl] >= 0)
+                pa, pb = ra[sl][live].long(), rb[sl][live].long()
+                for p in range(0, len(pa), tk):
+                    part = part + (a[pa[p:p + tk]].float().t()
+                                   @ b[pb[p:p + tk]].float())
+            total = total + part
+        out[k] = total
+    return out
+
+
+@pytest.fixture(scope="module")
+def scan_pyramid():
+    """The port's pyramid of an 8192-point ray-cast scan, on the CPU."""
+    cfgs = {"DATA": {"VOXEL_SIZE": 0.05},
+            "MODEL": {"NAME": "MinkUNet", "BLOCK": "ResBlock"},
+            "TPU": {"VOXEL_CAP_PER_SCAN": 8192}}
+    task = SegTask(cfgs, 20, device="cpu")
+    return task.preprocess(batch_to_device(raycast_batch(0, 1, cap=8192),
+                                           "cpu"))[1]
+
+
+def _dw_cases(rng, kind, pyr):
+    """(a, ia, b, ib, JAX _core_bwd dW) of each conv backward's dW form:
+    subm (K2: A by the map, B the identity) on the scan's level 0 and on a
+    small scene, down (K6) and up (K5: A the identity, B by the coarse
+    level's down map) on an up/down scene."""
+    def rnd(n, c):
+        return torch.as_tensor(rng.normal(size=(n, c)).astype(np.float32))
+
+    def jx(feats, maps, dout, center):
+        w = jnp.zeros((len(maps[0]), feats.shape[1], dout.shape[1]))
+        res = (jnp.asarray(feats.numpy()), w,
+               *(jnp.asarray(m.numpy()) for m in maps))
+        return np.asarray(jx_core_bwd(center, F32, res,
+                                      jnp.asarray(dout.numpy()))[1])
+    if kind.startswith("subm"):
+        if kind == "subm_scan":
+            lv = pyr.levels[0]
+            kmap, valid = lv.subm_kmap, lv.valid
+        else:
+            _, kmap, valid = subm_scene(rng, cin=8)
+            kmap, valid = _t(kmap, torch.int32), _t(valid, torch.bool)
+        n = kmap.shape[1]
+        a = rnd(n, 16) * valid[:, None]
+        d = rnd(n, 24) * valid[:, None]
+        return a, kmap, d, None, jx(a, (kmap, kmap.flip(0)), d, 13)
+    f_fine, f_coarse, dk, uk, fvalid, cvalid = updown_scene(rng, cin=16)
+    dk, uk = _t(dk, torch.int32), _t(uk, torch.int32)
+    if kind == "down":
+        a, d = _t(f_fine), rnd(dk.shape[1], 24) * _t(cvalid, torch.bool)[:,
+                                                                          None]
+        return a, dk, d, None, jx(a, (dk, uk), d, None)
+    a, d = _t(f_coarse), rnd(uk.shape[1], 24) * _t(fvalid, torch.bool)[:,
+                                                                        None]
+    return a, None, d, dk, jx(a, (uk, dk), d, None)
+
+
+@pytest.mark.parametrize("kind", ["subm_scan", "subm_scene", "down", "up"])
+def test_compacted_dw_order_matches_plain_and_jax(rng, scan_pyramid, kind):
+    """The dW kernel's chunked, compacted, fixed-order sum (at the chunking
+    dw_chunks gives the card) against the plain dW and JAX's _core_bwd dW,
+    float32 both (other summation orders)."""
+    a, ia, b, ib, ref = _dw_cases(rng, kind, scan_pyramid)
+    idx = ia if ia is not None else ib
+    rows, n_chunks = dw_chunks(idx.shape[1], idx.shape[0], a.shape[1],
+                               b.shape[1])
+    if kind == "subm_scan":
+        assert n_chunks > 1    # the partials and their fixed-order sum
+    got = compacted_dw(a, ia, b, ib, rows, n_chunks)
+    np.testing.assert_allclose(got.numpy(),
+                               gather_dw_plain(a, ia, b, ib).numpy(),
+                               rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(got.numpy(), ref, **XLA_TOL)
+    assert np.abs(ref).max() > 0.1

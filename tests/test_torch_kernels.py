@@ -28,7 +28,8 @@ from openpcseg_torch.core.geometry import build_parity_plan
 from openpcseg_torch.ops import cuda_lib
 from openpcseg_torch.ops.devox import devoxelize
 from openpcseg_torch.ops.sparse_conv import _core_bwd, _up2_fwd_impl
-from openpcseg_torch.ops.subm_conv import subm_conv
+from openpcseg_torch.ops.subm_conv import (dw_chunks, dw_partial_bytes,
+                                           gemm_splits, subm_conv)
 from openpcseg_torch.ops.updown import down_conv, up_conv
 
 XLA_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -309,3 +310,28 @@ def test_cpu_wrappers_count_no_launch(rng):
               _t(kmap))
     assert sum(cuda_lib.LAUNCHES.values()) == 0
     assert sum(cuda_lib.PLAIN_ON_CUDA.values()) == 0
+
+
+# ------------------------------------------------ launch plans (no card) --
+
+# (capacity, K, Cin, Cout) of the mk34 convs at the default caps, and the
+# splits the gather-GEMM takes there: 1 on the levels with 128-row tiles
+@pytest.mark.parametrize("n,k,cin,cout,splits", [
+    (98304, 27, 96, 96, 1), (68864, 27, 128, 96, 1), (37376, 27, 192, 128, 1),
+    (19712, 27, 64, 128, 1), (19712, 27, 128, 128, 2),
+    (19712, 27, 384, 256, 4), (10880, 27, 256, 256, 4),
+    (10880, 8, 128, 128, 1)])
+def test_gather_gemm_splits(n, k, cin, cout, splits):
+    assert gemm_splits(n, k, cin) == splits
+
+
+@pytest.mark.parametrize("n,k,ca,cb", [
+    (98304, 27, 96, 96), (98304, 27, 4, 32), (19712, 27, 384, 256),
+    (10880, 27, 256, 256), (10880, 8, 128, 128), (68864, 8, 96, 96),
+    (300, 27, 32, 32)])
+def test_dw_chunks_cover_the_rows_within_budget(n, k, ca, cb):
+    """Chunks cover every row once, in whole 32-row multiples, and the
+    float32 partials stay within their budget (one chunk needs none)."""
+    rows, n_chunks = dw_chunks(n, k, ca, cb)
+    assert rows % 32 == 0 and (n_chunks - 1) * rows < n <= n_chunks * rows
+    assert n_chunks == 1 or n_chunks * k * ca * cb * 4 <= dw_partial_bytes(k)

@@ -88,7 +88,7 @@ def both_sides():
     j_logits, j_hist, j_over, j_inv = jax.device_get(jax_eval(state, jb))
 
     task = SegTask({"DATA": {"VOXEL_SIZE": 0.05}, "MODEL": dict(MODEL),
-                    "TPU": dict(TPU)}, NUM_CLASS)
+                    "TPU": dict(TPU)}, NUM_CLASS, device="cpu")
     assert task.caps == jtask.caps
     jax_params_to_torch(jax.device_get(params), jax.device_get(stats),
                         task.model)
@@ -148,7 +148,7 @@ def test_converter_rejects_a_mismatched_tree():
     """An unused flax leaf or a missing one raises; the weight layout is
     [K, Cin, Cout] in kernel_offsets order."""
     task = SegTask({"DATA": {"VOXEL_SIZE": 0.05}, "MODEL": dict(MODEL),
-                    "TPU": dict(TPU)}, NUM_CLASS)
+                    "TPU": dict(TPU)}, NUM_CLASS, device="cpu")
     assert task.model.stem[0].conv.weight.shape == (
         len(kernel_offsets(3)), 4, 16)
     params = {"classifier": {"kernel": np.zeros((80, NUM_CLASS)),

@@ -97,7 +97,8 @@ def runs():
             state.opt_state[0]), stats=jax.device_get(state.batch_stats),
             params=jax.device_get(state.params)))
 
-    task = SegTask(_cfgs(), NUM_CLASS, iters_per_epoch=ITERS_PER_EPOCH)
+    task = SegTask(_cfgs(), NUM_CLASS, device="cpu",
+                   iters_per_epoch=ITERS_PER_EPOCH)
     assert task.caps == jtask.caps
     jax_params_to_torch(params0, stats0, task.model)
     tb = batch_to_device(batch, "cpu")
@@ -114,7 +115,7 @@ def runs():
 
     def as_torch(i, key):
         """JAX step i's tree `key`, laid out as the port's named tensors."""
-        twin = SegTask(_cfgs(), NUM_CLASS).model
+        twin = SegTask(_cfgs(), NUM_CLASS, device="cpu").model
         tree = j[i][key] if key != "stats" else j[i]["params"]
         jax_params_to_torch(tree, j[i]["stats"], twin)
         if key == "stats":
@@ -286,5 +287,6 @@ def test_train_step_needs_an_optim_block():
     cfgs = _cfgs()
     del cfgs["OPTIM"]
     with pytest.raises(RuntimeError, match="OPTIM"):
-        SegTask(cfgs, NUM_CLASS).train_step({})
-    assert math.isclose(SegTask(_cfgs(), NUM_CLASS).optim_cfg["LR"], 0.02)
+        SegTask(cfgs, NUM_CLASS, device="cpu").train_step({})
+    assert math.isclose(
+        SegTask(_cfgs(), NUM_CLASS, device="cpu").optim_cfg["LR"], 0.02)
