@@ -34,10 +34,12 @@ Phases, in order (any failure exits non-zero and prints no result line):
   6. a torch.profiler window over one request (device time per kernel; per
      kernel family beside its bound, from one more request whose kernel
      calls note their work);
-  7. backward-kernel phase: each backward kernel against its plain version
-     on the card, dfeats and dW apart, at the same pyramid's shapes, and
-     twice, bit for bit; K2, K5 and K6 also pass by pass (dfeats alone, dW
-     alone);
+  7. backward-kernel phase: per devox level the contributors per voxel
+     and the points per cell (max, p99, mean), the segments of K8's table,
+     and K8's device time at each segment length of DEVOX_CHUNKS; then each
+     backward kernel against its plain version on the card, dfeats and dW
+     apart, at the same pyramid's shapes, and twice, bit for bit; K2, K5
+     and K6 also pass by pass (dfeats alone, dW alone);
   8. training phase: TRAIN_STEPS SegTask.train_steps on the repeated scan
      of seed 1, each with a finite loss and gradient norm, voxel_overflow
      0, every forward and backward kernel launched and no plain version on
@@ -184,6 +186,7 @@ SUBM_PAIRS = [(0, 4, 32), (0, 32, 32), (1, 32, 32), (2, 32, 64), (2, 64, 64),
 DOWNS = [(1, 32), (2, 32), (3, 64), (4, 128)]          # (coarse level, C)
 UPS = [(3, 256, 256), (2, 256, 128), (1, 128, 96), (0, 96, 96)]  # fine lvl
 DEVOX = [(4, 256), (2, 128)]
+DEVOX_CHUNKS = (16, 32, 64, 128)  # K8 segment lengths timed per DEVOX case
 
 
 def log(*a):
@@ -269,7 +272,8 @@ def devox_work(x, idx, w):
 
 def devox_bwd_work(d, tbl):
     """K8: the CSR transpose (offsets, points, weights), each point row a
-    contributor reads, dvox; 2 C operations per contributor."""
+    contributor reads, dvox; 2 C operations per contributor. Its segment
+    table and f32 scratch are not counted."""
     nnz = int(tbl.t_ptr[-1])
     c, es = d.shape[1], d.element_size()
     return ((tbl.num_voxels + 1) * 4 + nnz * 8
@@ -904,14 +908,76 @@ def backward_cases(pyr, gen):
     return cases
 
 
+def devox_phase(pyr, report):
+    """Per devox level, the work K8 walks: contributors per valid voxel
+    (max, p99, mean) of the transpose, and points per valid level cell
+    (corner 0 of a point is its own cell), which bound how far the rows it
+    re-reads could be shared; where the tree cuts the transpose into
+    segments, their count and K8's device time on the level's DEVOX width
+    with the table cut at each chunk of DEVOX_CHUNKS (the geometry pass
+    builds one of them). Its inputs come from a generator of its own, so
+    the cases after it get the same inputs in a tree without segments."""
+    from openpcseg_torch.core import geometry
+    from openpcseg_torch.ops import devox
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+
+    def stats(cnt):
+        cnt = cnt.float()
+        return dict(max=int(cnt.max()), p99=float(torch.quantile(cnt, 0.99)),
+                    mean=float(cnt.mean()))
+
+    def text(st):
+        return " ".join(f"{k} {v:.1f}" for k, v in st.items())
+    out = []
+    for level, c in DEVOX:
+        tbl, lv = pyr.devox[level], pyr.levels[level]
+        cells = tbl.idx[0][tbl.idx[0] >= 0].long()
+        row = dict(level=level, voxels=int(lv.valid.sum()),
+                   contributors=int(tbl.t_ptr[-1]),
+                   per_voxel=stats(tbl.t_ptr.diff()[lv.valid]),
+                   per_cell=stats(torch.bincount(
+                       cells, minlength=lv.capacity)[lv.valid]))
+        msg = (f"[devox] L{level}: {row['voxels']} voxels, "
+               f"{row['contributors']} contributors; per voxel "
+               f"{text(row['per_voxel'])}; points per cell "
+               f"{text(row['per_cell'])}")
+        if hasattr(geometry, "devox_table"):
+            nseg = tbl.seg_ptr.diff()[lv.valid]
+            d = torch.randn(tbl.idx.shape[1], c, device="cuda", generator=gen)
+            d = torch.where(pyr.points.valid[:, None], d, 0.0).to(
+                torch.bfloat16)
+            by_chunk = {}
+            for chunk in DEVOX_CHUNKS:
+                t = geometry.devox_table(tbl.idx, tbl.weights,
+                                         tbl.num_voxels, chunk)
+                by_chunk[chunk] = device_ms(
+                    lambda: devox.devoxelize_bwd(d, t), KERNEL_REPS)
+            row.update(chunk=tbl.chunk, segments=int(tbl.seg_ptr[-1]),
+                       segment_capacity=tbl.seg_voxel.shape[0],
+                       split_voxels=int((nseg > 1).sum()),
+                       max_segments=int(nseg.max()),
+                       k8_device_ms_by_chunk=by_chunk)
+            msg += (f"; chunk {tbl.chunk}: {row['segments']} segments of "
+                    f"{row['segment_capacity']}, {row['split_voxels']} "
+                    f"voxels cut in several (up to {row['max_segments']}); "
+                    f"K8 device ms at C={c} by chunk " + ", ".join(
+                        f"{k}: {v:.4f}" for k, v in by_chunk.items()))
+        log(msg)
+        out.append(row)
+    report["devox_tables"] = out
+
+
 def backward_kernel_phase(task, gen, report):
     """Each backward kernel against its plain version, per output, and a
-    bit-identical repeat, whole and pass by pass."""
+    bit-identical repeat, whole and pass by pass; before them, the devox
+    tables' statistics and K8 by chunk (devox_phase)."""
     from openpcseg_torch.data.raycast import raycast_batch
     from openpcseg_torch.engine.task import batch_to_device
 
     b = batch_to_device(raycast_batch(SEED, 1, cap=N_POINTS), "cuda")
     _, pyr = task.preprocess(b)
+    devox_phase(pyr, report)
     rows = check_cases(backward_cases(pyr, gen), "bwd")
     report["backward_cases"] = rows
     return rows

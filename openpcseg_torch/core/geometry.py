@@ -13,11 +13,15 @@ import torch
 
 from ..ops.coords import Keys, lookup_keys_z3, make_keys
 from ..ops.kmap import _self_z_neighbors, build_downsample, build_subm_kmap
-from ..ops.voxelize import corner_offsets, devox_transpose_table
+from ..ops.voxelize import (corner_offsets, devox_segments,
+                            devox_transpose_table)
 from .tensor import (DevoxTable, ParityPlan, PointBuffer, SparseLevel,
                      VoxelPyramid)
 
 PARITY_TILE_ROWS = 64   # rows per tile of csrc/parent_gemm.cu (its BM)
+# contributors one warp of K8 (csrc/devox.cu) sums at most: the longest
+# serial chain of the transpose (chip_smoke.py times K8 at several)
+DEVOX_CHUNK = 64
 
 
 def _corner_table(lvl: SparseLevel) -> torch.Tensor:
@@ -105,6 +109,19 @@ def build_parity_plan(down_kmap: torch.Tensor, n_fine: int,
         tile_rows=tile_rows, max_tiles=-(-n_fine // tile_rows) + k + 1)
 
 
+def devox_table(idx: torch.Tensor, weights: torch.Tensor, num_voxels: int,
+                chunk: int = DEVOX_CHUNK) -> DevoxTable:
+    """The devoxelize table of one level: corner indices and weights [8, N]
+    (K7), their CSR transpose by voxel and its segments of at most `chunk`
+    contributors (K8)."""
+    t_ptr, t_point, t_weight = devox_transpose_table(idx, weights,
+                                                     num_voxels)
+    seg_ptr, seg_voxel = devox_segments(t_ptr, idx.shape[1], chunk)
+    return DevoxTable(idx=idx, weights=weights, num_voxels=num_voxels,
+                      t_ptr=t_ptr, t_point=t_point, t_weight=t_weight,
+                      seg_ptr=seg_ptr, seg_voxel=seg_voxel, chunk=chunk)
+
+
 def build_pyramid(coords0: torch.Tensor, valid0: torch.Tensor,
                   caps: Sequence[int], *, level0_keys: Keys,
                   devox_levels: Sequence[int] = ()) -> VoxelPyramid:
@@ -167,9 +184,7 @@ def build_pyramid(coords0: torch.Tensor, valid0: torch.Tensor,
                                      device=dev)).contiguous()
         w = _devox_weights(point_coords, l0.valid, levels[l].stride,
                            idx).contiguous()
-        t_ptr, t_point, t_weight = devox_transpose_table(idx, w, caps[l])
-        devox[l] = DevoxTable(idx=idx, weights=w, num_voxels=caps[l],
-                              t_ptr=t_ptr, t_point=t_point, t_weight=t_weight)
+        devox[l] = devox_table(idx, w, caps[l])
 
     return VoxelPyramid(levels=tuple(levels), points=points,
                         point_to_voxel0=p2v0, devox=devox,

@@ -70,10 +70,15 @@ class PointBuffer:
 
 @dataclass
 class DevoxTable:
-    """8-corner devoxelize indices and trilinear weights at one level, and
-    their transpose by voxel for the backward (ops.voxelize.
-    devox_transpose_table). identity=True: the points ARE this level's
-    rows (stride 1)."""
+    """8-corner devoxelize indices and trilinear weights at one level, their
+    transpose by voxel for the backward (ops.voxelize.
+    devox_transpose_table) and its cut into segments of at most `chunk`
+    contributors (ops.voxelize.devox_segments); core.geometry.devox_table
+    builds all of it. Segment s belongs to voxel seg_voxel[s] (-1 past the
+    last) and covers contributors t_ptr[v] + (s - seg_ptr[v]) * chunk
+    onwards; every voxel has at least one (an empty voxel's zero row is
+    written by it). identity=True: the points ARE this level's rows
+    (stride 1)."""
 
     idx: Optional[torch.Tensor]       # [8, n] int32 (-1 miss)
     weights: Optional[torch.Tensor]   # [8, n] float32
@@ -82,6 +87,9 @@ class DevoxTable:
     t_ptr: Optional[torch.Tensor] = None     # [V + 1] int32 CSR offsets
     t_point: Optional[torch.Tensor] = None   # [8n] int32 contributor point
     t_weight: Optional[torch.Tensor] = None  # [8n] float32 its weight
+    seg_ptr: Optional[torch.Tensor] = None   # [V + 1] int32 first segment
+    seg_voxel: Optional[torch.Tensor] = None  # [V + 8n/chunk] int32 (-1)
+    chunk: int = 0                    # contributors a segment holds at most
 
     def apply(self, voxel_feats: torch.Tensor) -> torch.Tensor:
         if self.identity:

@@ -53,8 +53,10 @@ _SIGNATURES = {
     "opcs_devox_f32": (4, 2),
     # a, ia, b, ib, partial, out | n, K, ca, cb, rows_per_chunk, n_chunks
     "opcs_gather_dw_bf16": (6, 6),
-    "opcs_devox_bwd_bf16": (5, 2),     # dout, ptr, point, w, dvox | n_vox, c
-    "opcs_devox_bwd_f32": (5, 2),
+    # dout, ptr, point, w, seg_ptr, seg_voxel, partial, counters, dvox
+    #   | n_seg, c, chunk
+    "opcs_devox_bwd_bf16": (9, 3),
+    "opcs_devox_bwd_f32": (9, 3),
 }
 # launch-configuration queries: name -> (number of int arguments, length of
 # the int info array they fill); no stream, no launch

@@ -2,9 +2,10 @@
 
 Counterpart of ``openpcseg_tpu/ops/voxelize.py`` (the parts the voxel path
 uses): ``_devox_apply`` (forward, K7's plain version), ``_devox_bwd``
-(its transpose, K8's plain version) and ``devox_transpose_table``, the
-deterministic transpose table K8 walks. The kernels that take these
-functions' place on the card are in ``ops/devox.py``.
+(its transpose, K8's plain version), and ``devox_transpose_table`` with
+``devox_segments``, the deterministic transpose table K8 walks and its cut
+into bounded segments. The kernels that take these functions' place on
+the card are in ``ops/devox.py``.
 """
 from __future__ import annotations
 
@@ -72,3 +73,22 @@ def devox_transpose_table(idx: torch.Tensor, weights: torch.Tensor,
         num_voxels + 1, device=idx.device), out_int32=True)
     point = (order % n).to(torch.int32)
     return ptr, point, weights.reshape(-1)[order].contiguous()
+
+
+def devox_segments(t_ptr: torch.Tensor, n_points: int, chunk: int):
+    """K8's work split of the transpose table: each voxel's contributor
+    range cut into segments of at most `chunk`, at least one per voxel (an
+    empty voxel's segment writes its zero row). Returns seg_ptr [V + 1], the
+    first segment of each voxel, and seg_voxel [V + ceil(8N / chunk)], the
+    voxel of each segment (-1 past the last used one), both int32. Segment
+    s of voxel v covers contributors t_ptr[v] + (s - seg_ptr[v]) * chunk up
+    to the next chunk boundary or t_ptr[v + 1]. Sizes come from the
+    capacities, so the launch needs no host sync: sum_v max(1, ceil(len_v /
+    chunk)) <= V + 8N / chunk."""
+    v = t_ptr.shape[0] - 1
+    nseg = ((t_ptr.diff() + chunk - 1) // chunk).clamp(min=1)
+    seg_ptr = torch.cat([t_ptr.new_zeros(1), nseg.cumsum(0, dtype=torch.int32)])
+    seg = torch.arange(v + -(-8 * n_points // chunk), dtype=torch.int32,
+                       device=t_ptr.device)
+    owner = torch.searchsorted(seg_ptr[1:], seg, right=True, out_int32=True)
+    return seg_ptr, torch.where(owner < v, owner, -1)

@@ -11,8 +11,7 @@ import pytest
 import torch
 import yaml
 
-from openpcseg_torch.core.geometry import build_parity_plan
-from openpcseg_torch.core.tensor import DevoxTable
+from openpcseg_torch.core.geometry import build_parity_plan, devox_table
 from openpcseg_torch.engine.task import SegTask
 from openpcseg_torch.ops import cuda_lib, devox, subm_conv, updown
 
@@ -97,10 +96,7 @@ def _calls(rng):
     w8 = torch.as_tensor(rng.normal(size=(8, 8, 8)), dtype=torch.float32)
     idx = torch.full((8, 16), -1, dtype=torch.int32)
     wts = torch.zeros(8, 16)
-    tbl = DevoxTable(idx, wts, num_voxels=16,
-                     t_ptr=torch.zeros(17, dtype=torch.int32),
-                     t_point=torch.zeros(128, dtype=torch.int32),
-                     t_weight=torch.zeros(128))
+    tbl = devox_table(idx, wts, 16)
     return {
         "subm": lambda: subm_conv.subm_conv(f, w27, km27),
         "down": lambda: updown.down_conv(f, w8, km8),

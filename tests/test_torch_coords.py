@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_devox import check_devox_table, k8_emulation
 from test_torch_kernels import check_parity_plan
 
 from openpcseg_tpu.core.batch import voxelize_points_batch as jx_voxelize
@@ -21,12 +22,14 @@ from openpcseg_tpu.ops import coords as jxc
 from openpcseg_tpu.ops import kmap as jxk
 from openpcseg_tpu.ops import segment as jxseg
 from openpcseg_torch.core.batch import voxelize_points_batch
-from openpcseg_torch.core.geometry import _corner_table, build_pyramid
+from openpcseg_torch.core.geometry import (_corner_table, build_pyramid,
+                                           devox_table)
 from openpcseg_torch.data.raycast import raycast_batch
 from openpcseg_torch.engine.task import default_caps
 from openpcseg_torch.ops import coords as tc
 from openpcseg_torch.ops import kmap as tk
 from openpcseg_torch.ops import segment as tseg
+from openpcseg_torch.ops.voxelize import _devox_bwd
 
 RATIOS = [1.0, 1.0, 0.6, 0.3, 0.15]   # no level overflows on the 8192 scan
 CAP0 = 8192
@@ -200,3 +203,30 @@ def test_corner_and_devox_tables(scan_pyramids, level):
     np.testing.assert_allclose(_np(td.weights), _np(jd.weights),
                                rtol=1e-6, atol=1e-6)
     assert tpyr.devox[0].identity and jpyr.devox[0].identity
+
+
+@pytest.mark.parametrize("level", [2, 4])
+def test_devox_transpose_and_segment_tables(scan_pyramids, level):
+    """K8's tables of the scan pyramid against a numpy construction from
+    JAX's idx, integer for integer: at the pyramid's chunk, and at a chunk
+    that cuts some voxels in four segments or more."""
+    _, _, _, jpyr, tpyr = scan_pyramids
+    td = tpyr.devox[level]
+    idx, w = _np(jpyr.devox[level].idx), _np(td.weights)
+    check_devox_table(td, idx, w)
+    small = devox_table(td.idx, td.weights, td.num_voxels, chunk=4)
+    check_devox_table(small, idx, w)
+    assert (np.diff(_np(small.seg_ptr)) >= 4).any()
+
+
+@pytest.mark.parametrize("chunk", [4, 64])
+def test_k8_summation_order_on_the_scan(scan_pyramids, rng, chunk):
+    """The kernel's order (k8_emulation, two lane groups) against the plain
+    transpose on the scan's level 4, in float32."""
+    _, _, _, _, tpyr = scan_pyramids
+    td = tpyr.devox[4]
+    tbl = devox_table(td.idx, td.weights, td.num_voxels, chunk)
+    d = rng.normal(size=(td.idx.shape[1], 3)).astype(np.float32)
+    got = k8_emulation(d, tbl, 2)
+    ref = _devox_bwd(torch.as_tensor(d), td.idx, td.weights, td.num_voxels)
+    np.testing.assert_allclose(got, _np(ref), rtol=1e-5, atol=1e-5)

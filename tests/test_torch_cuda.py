@@ -8,16 +8,19 @@ device, as on CPU-only machines. On a machine with an H100 and nvcc:
 Shapes come from the port's own pyramid of an 8192-point ray-cast scan;
 features are zero on padding rows, as every caller keeps them (the plain
 subm version takes the identity centre offset without a gather). Operands
-are bf16, both sides sum in float32, so they differ by summation order
+are bf16 (K7 and K8 also float32), both sides sum in float32, so they differ by summation order
 only: max|kernel - plain| <= 2e-2 * max|plain|. The backward kernels (K2,
 K5, K6 and the shared dW kernel, K8) are checked per output, dfeats and dW
-apart, and must repeat bit for bit: none of them uses atomics. So must the
-parent gather (K4, and K6's dfeats alone), whose rows without a parent
+apart, and must repeat bit for bit: none of them sums with atomics (the
+gather-GEMM's split tiles and K8's segments count arrivals, and the last to
+arrive adds the partials in a fixed order). So must the K7 devoxelize and
+the parent gather (K4, and K6's dfeats alone), whose rows without a parent
 must come out exactly zero.
 """
 import pytest
 import torch
 
+from openpcseg_torch.core.geometry import devox_table
 from openpcseg_torch.data.raycast import raycast_batch
 from openpcseg_torch.engine.task import SegTask, batch_to_device
 from openpcseg_torch.ops import cuda_lib, devox, subm_conv, updown
@@ -240,13 +243,24 @@ def test_parent_gemm_edges(pyr, cin, cout):
     _parent_check(got, again, updown.up_conv_plain(x, w, km), plan)
 
 
-@pytest.mark.parametrize("level,c", [(4, 256), (2, 128)])
-def test_devox_kernel(pyr, level, c):
+# the main path's (level, C), then ragged widths (element loads, two
+# points a warp at 12) and a width of two channel passes (384)
+DEVOX_CASES = [(4, 256), (2, 128), (2, 12), (4, 20), (4, 384)]
+DTYPES = [torch.bfloat16, torch.float32]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("level,c", DEVOX_CASES)
+def test_devox_kernel(pyr, level, c, dtype):
+    """K7: padding points (every corner missing) get zero rows."""
     g = torch.Generator(device="cuda").manual_seed(3)
     t = pyr.devox[level]
-    x = _feats(pyr.levels[level], c, g)
-    _close(devox.devoxelize(x, t.idx, t.weights),
-           devox.devoxelize_plain(x, t.idx, t.weights))
+    x = _feats(pyr.levels[level], c, g).to(dtype)
+    n = cuda_lib.LAUNCHES["devox"]
+    got = _twice(devox.devoxelize, x, t.idx, t.weights)
+    assert cuda_lib.LAUNCHES["devox"] == n + 2 and got.dtype == dtype
+    _close(got, devox.devoxelize_plain(x, t.idx, t.weights))
+    assert (got[~pyr.points.valid] == 0).all()
 
 
 def _bwd_check(kern, plain, args, kern_extra=()):
@@ -291,11 +305,61 @@ def test_up_backward_kernels(pyr, level, cin, cout):
     _bwd_check(updown.up_conv_bwd, updown.up_conv_bwd_plain, args)
 
 
-@pytest.mark.parametrize("level,c", [(4, 256), (2, 128)])
-def test_devox_backward_kernel(pyr, level, c):
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("level,c", DEVOX_CASES)
+def test_devox_backward_kernel(pyr, level, c, dtype):
+    """K8: padding voxels (no contributor) get zero rows."""
     g = torch.Generator(device="cuda").manual_seed(7)
     t = pyr.devox[level]
-    d = _rand(t.idx.shape[1], c, gen=g)
-    got, again = devox.devoxelize_bwd(d, t), devox.devoxelize_bwd(d, t)
+    d = _rand(t.idx.shape[1], c, gen=g).to(dtype)
+    n = cuda_lib.LAUNCHES["devox_bwd"]
+    got = _twice(devox.devoxelize_bwd, d, t)
+    assert cuda_lib.LAUNCHES["devox_bwd"] == n + 2 and got.dtype == dtype
     _close(got, _devox_bwd(d, t.idx, t.weights, t.num_voxels))
-    assert got.dtype == d.dtype and torch.equal(got, again)
+    assert (got[~pyr.levels[level].valid] == 0).all()
+
+
+def _long_voxel_table(n, v, gen, empty=False):
+    """[8, n] corners on the card: corner 0 of every point hits voxel 5,
+    a voxel of ceil(n / DEVOX_CHUNK) segments; the other corners hit random
+    voxels below v - 2 or miss; voxels v - 2 and v - 1 are never hit; the
+    last 64 points miss every corner. empty=True: every corner misses."""
+    idx = torch.randint(0, v - 2, (8, n), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    idx[0] = 5
+    miss = torch.rand(8, n, generator=gen, device="cuda") < 0.3
+    miss[0] = False
+    miss[:, n - 64:] = True
+    if empty:
+        miss[:] = True
+    idx = torch.where(miss, -1, idx).contiguous()
+    w = torch.rand(8, n, generator=gen, device="cuda")
+    return devox_table(idx, torch.where(miss, 0.0, w).contiguous(), v)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c", [256, 128, 20])
+@pytest.mark.parametrize("empty", [False, True])
+def test_devox_kernels_long_voxel_and_misses(dtype, c, empty):
+    """A voxel of at least four segments (partials summed by the last warp
+    to finish), voxels nobody hits, points that miss every corner, and (
+    empty) a table without a single hit: K7 and K8 against their plain
+    versions, bit for bit twice, zero rows where nothing is summed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(16)
+    n, v = 2048, 40
+    t = _long_voxel_table(n, v, g, empty)
+    if not empty:
+        assert int(t.seg_ptr[6] - t.seg_ptr[5]) >= 4
+    x = torch.randn(v, c, device="cuda", generator=g).to(dtype)
+    out = _twice(devox.devoxelize, x, t.idx, t.weights)
+    assert (out[n - 64:] == 0).all()
+    d = torch.randn(n, c, device="cuda", generator=g).to(dtype)
+    dvox = _twice(devox.devoxelize_bwd, d, t)
+    assert (dvox[v - 2:] == 0).all()
+    if empty:
+        assert (out == 0).all() and (dvox == 0).all()
+        return
+    _close(out, devox.devoxelize_plain(x, t.idx, t.weights))
+    _close(dvox, _devox_bwd(d, t.idx, t.weights, v))

@@ -31,7 +31,7 @@ from test_torch_kernels import (PALLAS_CONV_TOL, PALLAS_DEVOX_TOL, XLA_TOL,
 import openpcseg_tpu.ops.pallas_conv as pc
 import openpcseg_tpu.ops.pallas_devox as pd
 import openpcseg_tpu.ops.pallas_updown as pud
-from openpcseg_torch.core.tensor import DevoxTable
+from openpcseg_torch.core.geometry import devox_table
 from openpcseg_torch.ops import cuda_lib, subm_conv, updown
 from openpcseg_torch.ops.devox import DevoxFn
 from openpcseg_torch.ops.sparse_conv import _conv_apply
@@ -40,7 +40,7 @@ from openpcseg_torch.engine.task import SegTask, batch_to_device
 from openpcseg_torch.ops.subm_conv import (SubmConvFn, dw_chunks,
                                            gather_dw_plain)
 from openpcseg_torch.ops.updown import DownConvFn, UpConvFn
-from openpcseg_torch.ops.voxelize import _devox_bwd, devox_transpose_table
+from openpcseg_torch.ops.voxelize import _devox_bwd
 from openpcseg_tpu.ops import kernel_offsets
 from openpcseg_tpu.ops.sparse_conv import _core_bwd as jx_core_bwd
 from openpcseg_tpu.ops.sparse_conv import (sparse_conv, sparse_conv_up2,
@@ -138,10 +138,7 @@ def test_up_grads_match_pallas_and_xla(rng):
 # ------------------------------------------------------------------ K8 ----
 
 def _devox_table(idx, w, v):
-    idx_t, w_t = _t(idx, torch.int32), _t(w)
-    return DevoxTable(idx_t, w_t, num_voxels=v,
-                      **dict(zip(("t_ptr", "t_point", "t_weight"),
-                                 devox_transpose_table(idx_t, w_t, v))))
+    return devox_table(_t(idx, torch.int32), _t(w), v)
 
 
 @pytest.mark.parametrize("n,v,c", [(100, 40, 16), (200, 70, 96)])
