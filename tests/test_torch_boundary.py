@@ -29,6 +29,15 @@ SLICE_MODULES = [
     "openpcseg_torch.utils.metrics", "openpcseg_torch.utils.convert",
     "openpcseg_torch.engine.task", "openpcseg_torch.data.raycast",
     "openpcseg_torch.losses", "openpcseg_torch.optim",
+    "openpcseg_torch.config", "openpcseg_torch.data",
+    "openpcseg_torch.data.semantickitti_meta", "openpcseg_torch.data.augment",
+    "openpcseg_torch.data.semantickitti", "openpcseg_torch.data.synthetic",
+    "openpcseg_torch.data.voxel_view", "openpcseg_torch.data.raycast_kitti",
+    "openpcseg_torch.utils.logger", "openpcseg_torch.utils.tb_writer",
+    "openpcseg_torch.utils.reporting", "openpcseg_torch.utils.checkpoint",
+    "openpcseg_torch.engine.trainer", "openpcseg_torch.cli",
+    "openpcseg_torch.cli.train", "openpcseg_torch.cli.infer",
+    "openpcseg_torch.cli.golden_run",
 ]
 
 
