@@ -1,18 +1,21 @@
-"""Golden surrogate run of MinkUNet: the convergence gate of the port.
+"""Golden surrogate runs of MinkUNet and SPVCNN: the convergence gate of
+the port.
 
-Counterpart of ``tools/scripts/golden_run.py`` for the minkunet model. With
-no dataset it trains on the ray-cast surrogate (``data/raycast.py``): 128
-train scans (seeds 0-127) and 16 held-out val scans (seeds 10000-10015),
-each ``raycast_batch(seed, 1, cap=131072)``; batch 1, mk34 widths, the SGD
-recipe of the mk34 yaml, the LR warmed up over the first ``--warmup_frac``
-of the steps and cosine-decayed to the last. Every ``--eval_every`` steps
-it reads the val mIoU over the classes present in the val ground truth
-(``utils.metrics.gt_present_miou``) and writes the curves to ``--out``.
-The gate: the mean of the last 3 evals is at least the minkunet
-``accept_threshold`` of ``GOLDEN_r05_summary.json``.
+Counterpart of ``tools/scripts/golden_run.py`` for the minkunet and spvcnn
+models (``--model``, the blocks of its ``model_setup``). With no dataset
+it trains on the ray-cast surrogate (``data/raycast.py``): 128 train scans
+(seeds 0-127) and 16 held-out val scans (seeds 10000-10015), each
+``raycast_batch(seed, 1, cap=131072)``; batch 1, the model's widths, the
+SGD recipe of the mk34 yamls, the LR warmed up over the first
+``--warmup_frac`` of the steps and cosine-decayed to the last. Every
+``--eval_every`` steps it reads the val mIoU over the classes present in
+the val ground truth (``utils.metrics.gt_present_miou``) and writes the
+curves to ``--out``. The gate: the mean of the last 3 evals is at least
+the model's ``accept_threshold`` in ``GOLDEN_r05_summary.json``, with no
+voxel dropped; the payload's ``gate`` says whether it passed.
 
-    python -m openpcseg_torch.cli.golden_run --seed 0 \\
-        --out GOLDEN_torch_minkunet_s0.json
+    python -m openpcseg_torch.cli.golden_run --model spvcnn --seed 0 \\
+        --out GOLDEN_torch_spvcnn_s0.json
     python -m openpcseg_torch.cli.golden_run --data_path <kitti sequences>
 
 With ``--data_path`` it runs the port's training CLI on a real tree
@@ -39,15 +42,22 @@ import torch
 from openpcseg_torch.data.raycast import raycast_batch
 
 ROOT = Path(__file__).resolve().parents[2]
-CFG_FILE = "tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10.yaml"
+CFG_FILES = {
+    "minkunet": "tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10.yaml",
+    "spvcnn": "tools/cfgs/fusion/semantic_kitti/spvcnn_mk34_cr10.yaml",
+}
+# the ray-cast surrogate's NUM_LAYER per model (tools/scripts/golden_run.py)
+NUM_LAYER = {"minkunet": [2, 3, 4, 6, 2, 2, 2, 2], "spvcnn": [2] * 8}
+SUMMARY = "GOLDEN_r05_summary.json"
 NUM_CLASS = 20
 VAL_SEED0 = 10_000
 
 
 def run_real(args) -> int:
-    """A real tree: the port's training CLI on the mk34 yaml."""
+    """A real tree: the port's training CLI on the model's mk34 yaml."""
     cmd = [sys.executable, "-m", "openpcseg_torch.cli.train",
-           "--cfg_file", CFG_FILE, "--extra_tag", "golden_minkunet",
+           "--cfg_file", CFG_FILES[args.model], "--extra_tag",
+           f"golden_{args.model}",
            "--log_interval", "20", "--device", args.device]
     if args.epochs:
         cmd += ["--epochs", str(args.epochs)]
@@ -63,18 +73,27 @@ def base_optim(batch: int = 1) -> dict:
             "SCHEDULER": "linear_warmup_with_cosdecay", "WARMUP_EPOCH": 1}
 
 
-def model_setup(cr: float, voxel_cap: int = 98304) -> dict:
+def model_setup(cr: float, voxel_cap: int = 98304,
+                model: str = "minkunet") -> dict:
     return {
         "DATA": {"DATASET": "semantickitti", "VOXEL_SIZE": 0.05},
         "MODEL": {
-            "NAME": "MinkUNet", "IGNORE_LABEL": 0, "IN_FEATURE_DIM": 4,
-            "BLOCK": "ResBlock", "NUM_LAYER": [2, 3, 4, 6, 2, 2, 2, 2],
+            "NAME": {"minkunet": "MinkUNet", "spvcnn": "SPVCNN"}[model],
+            "IGNORE_LABEL": 0, "IN_FEATURE_DIM": 4,
+            "BLOCK": "ResBlock", "NUM_LAYER": list(NUM_LAYER[model]),
             "PLANES": [32, 32, 64, 128, 256, 256, 128, 96, 96],
             "cr": cr, "DROPOUT_P": 0.0, "LABEL_SMOOTHING": 0.1,
         },
         "OPTIM": base_optim(),
         "TPU": {"VOXEL_CAP_PER_SCAN": voxel_cap},
     }
+
+
+def accept_threshold(model: str) -> float:
+    """The model's gate: its accept_threshold in GOLDEN_r05_summary.json,
+    the JAX package's tail mIoU over two seeds less their spread."""
+    summary = json.loads((ROOT / SUMMARY).read_text())
+    return float(summary["models"][model]["accept_threshold"])
 
 
 def describe_device(device: torch.device) -> str:
@@ -128,7 +147,7 @@ def run_surrogate(args) -> dict:
         raise RuntimeError(f"golden_run: device {device} asked for, but "
                            "torch sees no CUDA device (--device cpu runs "
                            "on the CPU)")
-    cfgs = model_setup(args.cr, args.voxel_cap)
+    cfgs = model_setup(args.cr, args.voxel_cap, args.model)
     if args.lr_scale != 1.0:
         cfgs["OPTIM"]["LR_PER_SAMPLE"] *= args.lr_scale
     cache = Path(args.cache_dir) / (f"golden_scans_{args.n_train}_v"
@@ -177,9 +196,16 @@ def run_surrogate(args) -> dict:
                   f"(union-denominator {miou_raw:.2f})", flush=True)
     wall = time.time() - t0
     tail = [v for _, v in curve[-3:]]
+    tail_mean = float(np.mean(tail)) if tail else None
+    threshold = accept_threshold(args.model)
+    passed = bool(tail_mean is not None and tail_mean >= threshold
+                  and int(overflow) == 0)
+    print(f"gate: tail mean {tail_mean} against {args.model}'s "
+          f"accept_threshold {threshold} ({SUMMARY}), voxel_overflow max "
+          f"{int(overflow)}: {'passed' if passed else 'MISSED'}", flush=True)
     payload = {
         "kind": "raycast_surrogate",
-        "model": f"minkunet cr={args.cr}",
+        "model": f"{args.model} cr={args.cr}",
         "seed": args.seed,
         "lr_scale": args.lr_scale,
         "warmup_frac": args.warmup_frac,
@@ -193,7 +219,9 @@ def run_surrogate(args) -> dict:
         "val_miou_union_denom_curve": curve_raw,
         "val_perclass_iou": perclass,
         "final_val_miou": curve[-1][1] if curve else None,
-        "tail_mean": float(np.mean(tail)) if tail else None,
+        "tail_mean": tail_mean,
+        "gate": {"accept_threshold": threshold, "source": SUMMARY,
+                 "passed": passed},
         "voxel_overflow_max": int(overflow),
         "wall_s": round(wall, 1),
         "ms_per_step": round(wall / max(args.steps, 1) * 1e3, 2),
@@ -213,6 +241,7 @@ def run_surrogate(args) -> dict:
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model", choices=sorted(CFG_FILES), default="minkunet")
     ap.add_argument("--data_path", type=str, default=None,
                     help="a real SemanticKITTI sequences dir: run the train "
                          "CLI on it instead of the surrogate")
@@ -235,8 +264,11 @@ def parse_args(argv=None):
     ap.add_argument("--cache_dir", type=str,
                     default=str(ROOT / "build" / "openpcseg_torch"))
     ap.add_argument("--device", type=str, default="cuda")
-    ap.add_argument("--out", type=str, default="GOLDEN_torch_minkunet.json")
-    return ap.parse_args(argv)
+    ap.add_argument("--out", type=str, default=None,
+                    help="default GOLDEN_torch_<model>.json")
+    args = ap.parse_args(argv)
+    args.out = args.out or f"GOLDEN_torch_{args.model}.json"
+    return args
 
 
 def main(argv=None) -> int:

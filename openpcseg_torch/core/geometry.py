@@ -2,8 +2,9 @@
 
 Counterpart of ``openpcseg_tpu/core/geometry.py build_pyramid``, voxel
 modality (the points are the level-0 voxel sites) with isotropic stride-2
-levels, as MinkUNet uses it. Features never enter here: the network that
-follows is gathers and matmuls over these precomputed index tables.
+levels, as MinkUNet and SPVCNN use it. Features never enter here: the
+network that follows is gathers and matmuls over these precomputed index
+tables.
 """
 from __future__ import annotations
 
@@ -111,23 +112,36 @@ def build_parity_plan(down_kmap: torch.Tensor, n_fine: int,
 
 def devox_table(idx: torch.Tensor, weights: torch.Tensor, num_voxels: int,
                 chunk: int = DEVOX_CHUNK) -> DevoxTable:
-    """The devoxelize table of one level: corner indices and weights [8, N]
-    (K7), their CSR transpose by voxel and its segments of at most `chunk`
-    contributors (K8)."""
+    """The devoxelize table of one level: corner indices and weights
+    [K, N] (K7; K 8 or 1), their CSR transpose by voxel and its segments of
+    at most `chunk` contributors (K8)."""
     t_ptr, t_point, t_weight = devox_transpose_table(idx, weights,
                                                      num_voxels)
-    seg_ptr, seg_voxel = devox_segments(t_ptr, idx.shape[1], chunk)
+    seg_ptr, seg_voxel = devox_segments(t_ptr, idx.numel(), chunk)
     return DevoxTable(idx=idx, weights=weights, num_voxels=num_voxels,
                       t_ptr=t_ptr, t_point=t_point, t_weight=t_weight,
                       seg_ptr=seg_ptr, seg_voxel=seg_voxel, chunk=chunk)
 
 
+def p2v_table(p2v: torch.Tensor, num_voxels: int) -> DevoxTable:
+    """The one-corner table of a point-to-voxel map p2v [N] (-1 none) into
+    `num_voxels` rows: idx [1, N] is p2v, its weight 1 where it hits. K8
+    over it sums each voxel's points and K7 gathers each point's voxel
+    (ops.devox.voxel_sum, point_gather); its transpose's t_ptr.diff() is
+    each voxel's point count. The transpose holds N contributors and its
+    segment grid V + N / chunk."""
+    idx = p2v[None].to(torch.int32).contiguous()
+    return devox_table(idx, (idx >= 0).to(torch.float32), num_voxels)
+
+
 def build_pyramid(coords0: torch.Tensor, valid0: torch.Tensor,
                   caps: Sequence[int], *, level0_keys: Keys,
-                  devox_levels: Sequence[int] = ()) -> VoxelPyramid:
-    """L-level stride-2 pyramid with subm (3^3), down and up kernel maps and
-    the devoxelize tables of `devox_levels`. `coords0` is the key-sorted
-    deduplicated level-0 table with keys `level0_keys` (VoxelBatch)."""
+                  devox_levels: Sequence[int] = (),
+                  p2v_levels: Sequence[int] = ()) -> VoxelPyramid:
+    """L-level stride-2 pyramid with subm (3^3), down and up kernel maps,
+    the devoxelize tables of `devox_levels` and the point-to-voxel tables
+    of `p2v_levels`. `coords0` is the key-sorted deduplicated level-0 table
+    with keys `level0_keys` (VoxelBatch)."""
     num_levels = len(caps)
     levels = [SparseLevel(coords=coords0, valid=valid0, keys=level0_keys,
                           stride=(1, 1, 1))]
@@ -186,6 +200,10 @@ def build_pyramid(coords0: torch.Tensor, valid0: torch.Tensor,
                            idx).contiguous()
         devox[l] = devox_table(idx, w, caps[l])
 
+    # JAX looks up floor(point) // stride among level l's keys; a point is
+    # a level-0 site, so that voxel is its ancestor at level l
+    p2v = {l: p2v_table(ancestors[l], caps[l]) for l in p2v_levels}
+
     return VoxelPyramid(levels=tuple(levels), points=points,
                         point_to_voxel0=p2v0, devox=devox,
-                        level_counts=torch.stack(counts))
+                        level_counts=torch.stack(counts), p2v=p2v)

@@ -7,7 +7,7 @@ kernel map the network needs, built once per step from the coords alone
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -70,7 +70,8 @@ class PointBuffer:
 
 @dataclass
 class DevoxTable:
-    """8-corner devoxelize indices and trilinear weights at one level, their
+    """Devoxelize indices and weights at one level, K corners a point (8
+    trilinear corners, or the one voxel of a point-to-voxel table), their
     transpose by voxel for the backward (ops.voxelize.
     devox_transpose_table) and its cut into segments of at most `chunk`
     contributors (ops.voxelize.devox_segments); core.geometry.devox_table
@@ -80,15 +81,15 @@ class DevoxTable:
     written by it). identity=True: the points ARE this level's rows
     (stride 1)."""
 
-    idx: Optional[torch.Tensor]       # [8, n] int32 (-1 miss)
-    weights: Optional[torch.Tensor]   # [8, n] float32
+    idx: Optional[torch.Tensor]       # [K, n] int32 (-1 miss)
+    weights: Optional[torch.Tensor]   # [K, n] float32
     identity: bool = False
     num_voxels: int = 0               # rows of the level (its capacity)
     t_ptr: Optional[torch.Tensor] = None     # [V + 1] int32 CSR offsets
-    t_point: Optional[torch.Tensor] = None   # [8n] int32 contributor point
-    t_weight: Optional[torch.Tensor] = None  # [8n] float32 its weight
+    t_point: Optional[torch.Tensor] = None   # [Kn] int32 contributor point
+    t_weight: Optional[torch.Tensor] = None  # [Kn] float32 its weight
     seg_ptr: Optional[torch.Tensor] = None   # [V + 1] int32 first segment
-    seg_voxel: Optional[torch.Tensor] = None  # [V + 8n/chunk] int32 (-1)
+    seg_voxel: Optional[torch.Tensor] = None  # [V + Kn/chunk] int32 (-1)
     chunk: int = 0                    # contributors a segment holds at most
 
     def apply(self, voxel_feats: torch.Tensor) -> torch.Tensor:
@@ -100,10 +101,16 @@ class DevoxTable:
 
 @dataclass
 class VoxelPyramid:
-    """All level geometry and kernel maps for one network forward."""
+    """All level geometry and kernel maps for one network forward.
+
+    ``p2v[l]`` is the point-to-voxel table of level l that SPVCNN's
+    mean-voxelize walks: a one-corner DevoxTable (core.geometry.p2v_table)
+    whose ``idx`` [1, n] is JAX's ``p2v[l]``, each point's level-l voxel
+    (-1 none)."""
 
     levels: Tuple[SparseLevel, ...]
     points: PointBuffer
     point_to_voxel0: torch.Tensor        # [n] int32 into level 0 (-1)
     devox: Dict[int, DevoxTable]         # level -> table
     level_counts: torch.Tensor           # [L] true voxel count per level
+    p2v: Dict[int, DevoxTable] = field(default_factory=dict)

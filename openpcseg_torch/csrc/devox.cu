@@ -1,7 +1,11 @@
 // Trilinear devoxelize: the port's K7 (forward) and K8 (its transpose).
 //
-//   K7: out[p, :] = sum_{c < 8} w[c, p] * vox[idx[c, p], :]   (idx -1: skip)
+//   K7: out[p, :] = sum_{c < K} w[c, p] * vox[idx[c, p], :]   (idx -1: skip)
 //   K8: dvox[v, :] = sum_{(c, p): idx[c, p] = v} w[c, p] * dout[p, :]
+//
+// K is 8 for the trilinear tables and 1 for SPVCNN's point-to-voxel tables
+// (core/geometry.py p2v_table: K8 over one is its mean-voxelize's sum, K7
+// its backward's gather).
 //
 // K7 replaces (TPU kernel): openpcseg_tpu/ops/pallas_devox.py:_fwd_kernel
 // (launched by _run_fwd, entry pallas_devoxelize). The TPU kernel folds the
@@ -10,12 +14,13 @@
 // directly.
 //
 // What bounds K7 on the H100: device-memory bytes. Each point reads up to
-// 8 voxel rows of C channels (most from L2: neighbouring points share
+// K voxel rows of C channels (most from L2: neighbouring points share
 // corners) and writes one row; 2 flops per loaded element. The design:
 // - a warp owns a tile of 8 consecutive points and reads their corner
-//   table [8, 8] (indices and f32 weights) with lanes over points: lane
-//   h * 8 + j loads corners h and h + 4 of point j, four 32-byte sectors a
-//   load, every byte used; shuffles hand each point its 8 (index, weight);
+//   table [K, 8] (indices and f32 weights) with lanes over points: lane
+//   h * 8 + j loads corners h and h + 4 of point j (those below K), 32-byte
+//   sectors, every byte used; shuffles hand each point its K (index,
+//   weight);
 // - C / VEC lanes serve one point (16-byte vectors of 8 bf16 or 4 f32), so
 //   a warp serves G = 32 / (C / VEC) points at once where C is narrow (two
 //   at C = 128 in bf16) and no lane idles;
@@ -32,11 +37,11 @@
 // block with a window plan (build_rev_plan) and one-hot matmuls. Here the
 // transpose is a gather too, over tables the geometry pass builds once per
 // step (core/geometry.py devox_table): the CSR of idx by voxel (ops/
-// voxelize.py devox_transpose_table: ptr [V + 1], point [8N], weight [8N],
+// voxelize.py devox_transpose_table: ptr [V + 1], point [KN], weight [KN],
 // each voxel's (corner, point) contributors in (corner, point) order), and
 // its cut into segments of at most `chunk` contributors (devox_segments:
 // seg_ptr [V + 1], the first segment of each voxel, at least one each;
-// seg_voxel [V + ceil(8N / chunk)], the voxel of each segment, -1 past the
+// seg_voxel [V + ceil(KN / chunk)], the voxel of each segment, -1 past the
 // last).
 //
 // What bounds K8 on the H100: bytes, mostly from L2. Each valid point's
@@ -135,8 +140,9 @@ __device__ __forceinline__ void add_partial(const float* p, float (&a)[VEC]) {
   }
 }
 
-// K7. G points at a time per warp, L = 32 / G lanes each.
-template <typename T, int VEC, int G>
+// K7. G points at a time per warp, L = 32 / G lanes each; K corners (1 or
+// 8) a point.
+template <typename T, int VEC, int G, int K>
 __global__ void __launch_bounds__(THREADS)
 devox_kernel(const T* __restrict__ vox, const int* __restrict__ idx,
              const float* __restrict__ w, T* __restrict__ out, int n,
@@ -154,19 +160,21 @@ devox_kernel(const T* __restrict__ vox, const int* __restrict__ idx,
     const int h = lane / TILE;
     int i_lo = -1, i_hi = -1;
     float w_lo = 0.0f, w_hi = 0.0f;
-    if (pl < n) {
+    if (pl < n && h < K) {
       i_lo = __ldg(idx + (size_t)h * n + pl);
-      i_hi = __ldg(idx + (size_t)(h + 4) * n + pl);
       w_lo = __ldg(w + (size_t)h * n + pl);
+    }
+    if (pl < n && h + 4 < K) {
+      i_hi = __ldg(idx + (size_t)(h + 4) * n + pl);
       w_hi = __ldg(w + (size_t)(h + 4) * n + pl);
     }
 #pragma unroll
     for (int j0 = 0; j0 < TILE; j0 += G) {
       const int j = j0 + g;
-      int ci[8];
-      float cw[8];
+      int ci[K];
+      float cw[K];
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
+      for (int k = 0; k < K; ++k) {
         const int src = (k % 4) * TILE + j;
         ci[k] = __shfl_sync(FULL, k < 4 ? i_lo : i_hi, src);
         cw[k] = __shfl_sync(FULL, k < 4 ? w_lo : w_hi, src);
@@ -178,7 +186,7 @@ devox_kernel(const T* __restrict__ vox, const int* __restrict__ idx,
 #pragma unroll
         for (int e = 0; e < VEC; ++e) acc[e] = 0.0f;
 #pragma unroll
-        for (int k = 0; k < 8; ++k) {
+        for (int k = 0; k < K; ++k) {
           if (ci[k] < 0) continue;
           float x[VEC];
           load_f32<T, VEC>(vox + (size_t)ci[k] * c + ch, x);
@@ -191,12 +199,12 @@ devox_kernel(const T* __restrict__ vox, const int* __restrict__ idx,
   }
 }
 
-template <typename T, int VEC, int G>
+template <typename T, int VEC, int G, int K>
 int launch(const void* vox, const void* idx, const void* w, void* out, int n,
            int c, void* stream) {
   if (n > 0 && c > 0) {
     const int blocks = opcs::ceil_div(opcs::ceil_div(n, TILE), WARPS);
-    devox_kernel<T, VEC, G><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+    devox_kernel<T, VEC, G, K><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
         (const T*)vox, (const int*)idx, (const float*)w, (T*)out, n, c);
   }
   return (int)cudaGetLastError();
@@ -305,14 +313,22 @@ int groups_of(int c, int vec) {
   return lanes <= 8 ? 4 : lanes <= 16 ? 2 : 1;
 }
 
+template <typename T, int VEC, int K>
+int dispatch_g(const void* vox, const void* idx, const void* w, void* out,
+               int n, int c, void* stream) {
+  switch (groups_of(c, VEC)) {
+    case 4: return launch<T, VEC, 4, K>(vox, idx, w, out, n, c, stream);
+    case 2: return launch<T, VEC, 2, K>(vox, idx, w, out, n, c, stream);
+    default: return launch<T, VEC, 1, K>(vox, idx, w, out, n, c, stream);
+  }
+}
+
 template <typename T, int VEC>
 int dispatch(const void* vox, const void* idx, const void* w, void* out,
-             int n, int c, void* stream) {
-  switch (groups_of(c, VEC)) {
-    case 4: return launch<T, VEC, 4>(vox, idx, w, out, n, c, stream);
-    case 2: return launch<T, VEC, 2>(vox, idx, w, out, n, c, stream);
-    default: return launch<T, VEC, 1>(vox, idx, w, out, n, c, stream);
-  }
+             int n, int c, int k, void* stream) {
+  if (k == 8) return dispatch_g<T, VEC, 8>(vox, idx, w, out, n, c, stream);
+  if (k == 1) return dispatch_g<T, VEC, 1>(vox, idx, w, out, n, c, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T, int VEC>
@@ -338,19 +354,20 @@ int dispatch_bwd(const void* dout, const void* ptr, const void* point,
 
 }  // namespace
 
-// vox [n_vox, c], idx [8, n] int32 (-1 miss), w [8, n] f32, out [n, c];
-// vox and out share the feature type. All contiguous.
+// vox [n_vox, c], idx [k, n] int32 (-1 miss), w [k, n] f32, out [n, c],
+// k 8 or 1; vox and out share the feature type. All contiguous.
 OPCS_API int opcs_devox_bf16(const void* vox, const void* idx, const void* w,
-                             void* out, int n, int c, void* stream) {
+                             void* out, int n, int c, int k, void* stream) {
   if (c % 8 == 0)
-    return dispatch<__nv_bfloat16, 8>(vox, idx, w, out, n, c, stream);
-  return dispatch<__nv_bfloat16, 1>(vox, idx, w, out, n, c, stream);
+    return dispatch<__nv_bfloat16, 8>(vox, idx, w, out, n, c, k, stream);
+  return dispatch<__nv_bfloat16, 1>(vox, idx, w, out, n, c, k, stream);
 }
 
 OPCS_API int opcs_devox_f32(const void* vox, const void* idx, const void* w,
-                            void* out, int n, int c, void* stream) {
-  if (c % 4 == 0) return dispatch<float, 4>(vox, idx, w, out, n, c, stream);
-  return dispatch<float, 1>(vox, idx, w, out, n, c, stream);
+                            void* out, int n, int c, int k, void* stream) {
+  if (c % 4 == 0)
+    return dispatch<float, 4>(vox, idx, w, out, n, c, k, stream);
+  return dispatch<float, 1>(vox, idx, w, out, n, c, k, stream);
 }
 
 // dout [n, c]; the CSR transpose ptr [n_vox + 1], point [m], w [m] int32 /

@@ -2,23 +2,25 @@
 
 Counterpart of ``openpcseg_tpu/data/__init__.py``: ``build_dataloader``
 maps (modality, dataset) to a view and wraps it in a ``BatchLoader``. The
-port has the voxel view of SemanticKITTI and ScribbleKITTI; every other
-view of the JAX package raises ``NotImplementedError`` naming the ROADMAP
-item that ports it. ``raycast`` and ``raycast_kitti`` make surrogate scans
+port has the voxel and fusion views of SemanticKITTI and ScribbleKITTI;
+every other view of the JAX package raises ``NotImplementedError`` naming
+the ROADMAP item that ports it. ``raycast`` and ``raycast_kitti`` make surrogate scans
 and trees without a dataset.
 """
 from __future__ import annotations
 
+from .fusion_view import SemkittiFusionDataset
 from .voxel_view import BatchLoader, SemkittiVoxelDataset, collate  # noqa: F401
 
 _VIEWS = {
     ("voxel", "semantickitti"): SemkittiVoxelDataset,
     ("voxel", "scribblekitti"): SemkittiVoxelDataset,
+    ("fusion", "semantickitti"): SemkittiFusionDataset,
+    ("fusion", "scribblekitti"): SemkittiFusionDataset,
 }
 # the JAX package's other views, and the ROADMAP.md Queue 1 item that
 # ports each
 _NOT_PORTED = {
-    ("fusion", "semantickitti"): 11, ("fusion", "scribblekitti"): 11,
     ("cylinder", "semantickitti"): 12, ("cylinder", "scribblekitti"): 12,
     ("range", "semantickitti"): 14, ("range", "scribblekitti"): 14,
     ("voxel", "waymo"): 15, ("cylinder", "waymo"): 15,

@@ -1,11 +1,11 @@
-"""SegTask: the train / eval core for one (config, model) pair, voxel
-modality.
+"""SegTask: the train / eval core for one (config, model) pair, voxel and
+fusion modalities of the voxel-input segmentors (MinkUNet, SPVCNN).
 
 Counterpart of ``openpcseg_tpu/engine/task.py`` (``default_caps``,
 ``preprocess``, ``train_step``, ``eval_step``, ``predict_step``), all on
 `device`:
 
-- one train step = voxelize + geometry pass + MinkUNet forward with
+- one train step = voxelize + geometry pass + the model's forward with
   batch-statistics BN + the configured losses (CE with label smoothing +
   Lovász-softmax) + backward through the kernels' backward passes +
   gradient clipping + the optimizer update at the scheduled lr;
@@ -26,6 +26,13 @@ from ..models import build_segmentor
 from ..ops.coords import Keys
 from ..optim import build_optimizer
 from ..utils.metrics import confusion_matrix
+
+
+# the JAX package's other modalities and the ROADMAP.md Queue 1 item that
+# ports each; "fusion" runs here for the models whose input is the voxel
+# features (SPVCNN; RPVNet, whose input also takes the range image, is
+# item 13 and not in the registry)
+_NOT_PORTED = {"cylinder": 12, "range": 14}
 
 
 def default_caps(voxel_cap0: int, num_levels: int,
@@ -76,8 +83,11 @@ class SegTask:
                 f"SegTask: device {self.device} asked for, but torch sees no "
                 f"CUDA device (pass device='cpu' to run on the CPU)")
         self.compute_dtype = compute_dtype
-        if cfgs.get("MODALITY", "voxel") != "voxel":
-            raise NotImplementedError("only the voxel modality is ported")
+        modality = cfgs.get("MODALITY", "voxel")
+        if modality in _NOT_PORTED:
+            raise NotImplementedError(
+                f"the {modality} modality is not ported yet (ROADMAP.md "
+                f"Queue 1 item {_NOT_PORTED[modality]})")
         self.voxel_size = float(cfgs["DATA"]["VOXEL_SIZE"])
         model_cfg = cfgs["MODEL"]
         self.model = build_segmentor(model_cfg, num_class,
@@ -86,6 +96,7 @@ class SegTask:
         self.model.to(self.device).eval()
         spec = type(self.model).geometry_spec()
         self.devox_levels = spec["devox_levels"]
+        self.p2v_levels = spec.get("p2v_levels", ())
         tpu_cfg = cfgs.get("TPU", {})
         cap0 = voxel_cap_per_scan or tpu_cfg.get("VOXEL_CAP_PER_SCAN", 98304)
         self.caps = default_caps(cap0 * batch_per_device, spec["num_levels"],
@@ -120,7 +131,7 @@ class SegTask:
         pyr = build_pyramid(
             vb.voxel_coords, vb.voxel_valid, self.caps,
             level0_keys=Keys(vb.voxel_keys_hi, vb.voxel_keys_lo),
-            devox_levels=self.devox_levels)
+            devox_levels=self.devox_levels, p2v_levels=self.p2v_levels)
         return vb, pyr
 
     def voxel_overflow(self, vb, pyr) -> torch.Tensor:

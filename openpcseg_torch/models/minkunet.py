@@ -89,6 +89,22 @@ class MinkUNet(nn.Module):
             x = b(x, lvl.subm_kmap, lvl.valid)
         return x
 
+    def _down(self, i, x, lv):
+        """Down stage i: level i -> i + 1 (k2/s2 conv block, then blocks)."""
+        fine, coarse = lv[i], lv[i + 1]
+        x = self.downs[i](x, coarse.down_kmap, coarse.valid,
+                          kmap_t=fine.up_kmap, plan=coarse.parity_plan)
+        return self._run(self.down_blocks[i], x, coarse)
+
+    def _up(self, i, x, skip, lv):
+        """Up stage i: level 4 - i -> 3 - i (transposed conv, BN, ReLU,
+        concat with the skip, then blocks)."""
+        coarse, fine = lv[4 - i], lv[3 - i]
+        x = self.ups[i](x, fine.up_kmap, fine.valid,
+                        kmap_t=coarse.down_kmap, plan=coarse.parity_plan)
+        x = torch.relu(self.up_bns[i](x, fine.valid))
+        return self._run(self.up_blocks[i], torch.cat([x, skip], dim=-1), fine)
+
     def _dropout(self, x, generator):
         return dropout(x, self.dropout_p, generator) if self.training else x
 
@@ -101,21 +117,13 @@ class MinkUNet(nn.Module):
 
         feats = [x]
         for i in range(4):
-            fine, coarse = lv[i], lv[i + 1]
-            x = self.downs[i](x, coarse.down_kmap, coarse.valid,
-                              kmap_t=fine.up_kmap, plan=coarse.parity_plan)
-            x = self._run(self.down_blocks[i], x, coarse)
+            x = self._down(i, x, lv)
             feats.append(x)
         z = [pyr.devox[4].apply(x)]
         x = self._dropout(x, generator)
 
         for i in range(4):
-            coarse, fine = lv[4 - i], lv[3 - i]
-            x = self.ups[i](x, fine.up_kmap, fine.valid,
-                            kmap_t=coarse.down_kmap, plan=coarse.parity_plan)
-            x = torch.relu(self.up_bns[i](x, fine.valid))
-            x = torch.cat([x, feats[3 - i]], dim=-1)
-            x = self._run(self.up_blocks[i], x, fine)
+            x = self._up(i, x, feats[3 - i], lv)
             if i == 1:
                 z.append(pyr.devox[2].apply(x))
                 x = self._dropout(x, generator)

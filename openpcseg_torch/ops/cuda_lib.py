@@ -35,9 +35,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # forward kernels (K1, K3, K4, K7), then the backward ones: the dfeats
-# passes of K2 / K6 / K5, the shared weight-gradient kernel, and K8
+# passes of K2 / K6 / K5, the shared weight-gradient kernel, and K8; then
+# SPVCNN's mean-voxelize, K8 over a one-corner table, and its backward, K7
 COUNTERS = ("subm", "down", "up", "devox", "subm_bwd", "down_bwd", "up_bwd",
-            "dw", "devox_bwd")
+            "dw", "devox_bwd", "vmean", "vmean_bwd")
 LAUNCHES = dict.fromkeys(COUNTERS, 0)
 PLAIN_ON_CUDA = dict.fromkeys(COUNTERS, 0)
 
@@ -49,8 +50,8 @@ _SIGNATURES = {
     # src, w, src_rows, dst_rows, group_off, tile_off, out
     #   | cin, cout, max_tiles, tile_rows
     "opcs_parent_gemm_bf16": (7, 4),
-    "opcs_devox_bf16": (4, 2),         # vox, idx, w, out | n, c
-    "opcs_devox_f32": (4, 2),
+    "opcs_devox_bf16": (4, 3),         # vox, idx, w, out | n, c, k
+    "opcs_devox_f32": (4, 3),
     # a, ia, b, ib, partial, out | n, K, ca, cb, rows_per_chunk, n_chunks
     "opcs_gather_dw_bf16": (6, 6),
     # dout, ptr, point, w, seg_ptr, seg_voxel, partial, counters, dvox

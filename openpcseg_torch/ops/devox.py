@@ -18,12 +18,24 @@ Counterpart of ``openpcseg_tpu/ops/pallas_devox.py``:
 
 ``DevoxFn`` is the autograd Function over both. The source says what
 bounds each kernel and why.
+
+Both take a table of K corners a point: 8 for the trilinear tables, 1
+for SPVCNN's point-to-voxel tables. SPVCNN's mean-voxelize (JAX
+``ops/voxelize.py voxelize_mean``, a ``segment_mean`` on XLA, no Pallas
+kernel) reuses both kernels over its level's one-corner table
+(``core.geometry.p2v_table``: idx [1, N], the point's voxel with weight
+1): ``voxel_sum`` is K8 over it, the sum of each voxel's points in a fixed
+order, so it repeats bit for bit where ``index_add_`` would not;
+``point_gather``, its transpose, is K7. ``VoxelizeMeanFn`` divides by the
+count around them. Their launches count apart, as ``vmean`` and
+``vmean_bwd``.
 """
 from __future__ import annotations
 
 import torch
 
 from . import cuda_lib
+from .segment import segment_sum
 from .voxelize import _devox_apply, _devox_bwd
 
 _ENTRIES = {torch.bfloat16: "bf16", torch.float32: "f32"}
@@ -38,10 +50,16 @@ def _entry(name: str, dtype: torch.dtype) -> str:
 def devoxelize(voxel_feats: torch.Tensor, idx: torch.Tensor,
                weights: torch.Tensor) -> torch.Tensor:
     """point[p] = sum_c weights[c, p] * voxel_feats[idx[c, p]]: [N, C] in
-    the feature type. CPU tensors take the plain version; CUDA tensors
-    launch the kernel (bf16 or f32 features, int32 idx, f32 weights)."""
+    the feature type, over K = 8 or 1 corners c. CPU tensors take the plain
+    version; CUDA tensors launch the kernel (bf16 or f32 features, int32
+    idx, f32 weights)."""
     if not voxel_feats.is_cuda:
         return devoxelize_plain(voxel_feats, idx, weights)
+    return _launch_devox(voxel_feats, idx, weights, "devox")
+
+
+def _launch_devox(voxel_feats, idx, weights, counter):
+    """K7 on CUDA tensors, counted under `counter`."""
     dev = voxel_feats.device
     n = idx.shape[1]
     c = voxel_feats.shape[1]
@@ -49,12 +67,14 @@ def devoxelize(voxel_feats: torch.Tensor, idx: torch.Tensor,
     cuda_lib.check_cuda(voxel_feats, "voxel_feats", voxel_feats.dtype, 2, dev)
     cuda_lib.check_cuda(idx, "idx", torch.int32, 2, dev)
     cuda_lib.check_cuda(weights, "weights", torch.float32, 2, dev)
-    if idx.shape[0] != 8 or weights.shape != idx.shape:
+    k = idx.shape[0]
+    if k not in (1, 8) or weights.shape != idx.shape:
         raise ValueError(f"devoxelize: idx {tuple(idx.shape)} / weights "
-                         f"{tuple(weights.shape)} must both be [8, N]")
+                         f"{tuple(weights.shape)} must both be [8, N] or "
+                         f"[1, N]")
     out = torch.empty((n, c), dtype=voxel_feats.dtype, device=dev)
-    cuda_lib.launch(entry, "devox", voxel_feats.data_ptr(), idx.data_ptr(),
-                    weights.data_ptr(), out.data_ptr(), n, c)
+    cuda_lib.launch(entry, counter, voxel_feats.data_ptr(), idx.data_ptr(),
+                    weights.data_ptr(), out.data_ptr(), n, c, k)
     return out
 
 
@@ -71,6 +91,11 @@ def devoxelize_bwd(dout: torch.Tensor, table) -> torch.Tensor:
     version; CUDA tensors launch the kernel or raise."""
     if not dout.is_cuda:
         return devoxelize_bwd_plain(dout, table)
+    return _launch_devox_bwd(dout, table, "devox_bwd")
+
+
+def _launch_devox_bwd(dout, table, counter):
+    """K8 on CUDA tensors, counted under `counter`."""
     dev = dout.device
     dout = dout.contiguous()
     entry = _entry("devox_bwd", dout.dtype)
@@ -85,7 +110,7 @@ def devoxelize_bwd(dout: torch.Tensor, table) -> torch.Tensor:
             or table.t_point.shape != table.t_weight.shape
             or table.t_point.shape[0] != table.idx.numel()
             or table.seg_ptr.shape[0] != n_vox + 1 or table.chunk < 1
-            or n_seg != n_vox + -(-8 * n // table.chunk)
+            or n_seg != n_vox + -(-table.idx.numel() // table.chunk)
             or dout.shape[0] != n):
         raise ValueError(f"devoxelize_bwd: dout {tuple(dout.shape)} does not "
                          f"fit the transpose table of {n_vox} voxels")
@@ -95,7 +120,7 @@ def devoxelize_bwd(dout: torch.Tensor, table) -> torch.Tensor:
     # arrival counters
     partial = torch.empty((n_seg, c), dtype=torch.float32, device=dev)
     counters = torch.zeros(n_vox, dtype=torch.int32, device=dev)
-    cuda_lib.launch(entry, "devox_bwd", dout.data_ptr(),
+    cuda_lib.launch(entry, counter, dout.data_ptr(),
                     table.t_ptr.data_ptr(), table.t_point.data_ptr(),
                     table.t_weight.data_ptr(), table.seg_ptr.data_ptr(),
                     table.seg_voxel.data_ptr(), partial.data_ptr(),
@@ -121,3 +146,52 @@ class DevoxFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         return devoxelize_bwd(dout, ctx.table), None
+
+
+def voxel_sum(point_feats: torch.Tensor, table) -> torch.Tensor:
+    """sum[v] = sum of point_feats[p] over the points p of voxel v: [V, C]
+    in the feature type, over a one-corner table (core.geometry.p2v_table).
+    CPU tensors take the plain version, ``segment_sum``; CUDA tensors
+    launch K8 over the table or raise."""
+    if not point_feats.is_cuda:
+        return voxel_sum_plain(point_feats, table)
+    return _launch_devox_bwd(point_feats, table, "vmean")
+
+
+def voxel_sum_plain(point_feats, table):
+    cuda_lib.note_plain("vmean", point_feats)
+    return segment_sum(point_feats, table.idx[0], table.num_voxels)
+
+
+def point_gather(voxel_feats: torch.Tensor, table) -> torch.Tensor:
+    """out[p] = voxel_feats[p's voxel], 0 for a point without one: [N, C]
+    in the feature type, the transpose of ``voxel_sum``. CPU tensors take
+    the plain version; CUDA tensors launch K7 over the table or raise."""
+    if not voxel_feats.is_cuda:
+        return point_gather_plain(voxel_feats, table)
+    return _launch_devox(voxel_feats.contiguous(), table.idx, table.weights,
+                         "vmean_bwd")
+
+
+def point_gather_plain(voxel_feats, table):
+    cuda_lib.note_plain("vmean_bwd", voxel_feats)
+    p2v = table.idx[0]
+    return torch.where((p2v >= 0)[:, None],
+                       voxel_feats[p2v.clamp(min=0).long()], 0.0)
+
+
+class VoxelizeMeanFn(torch.autograd.Function):
+    """voxel means [V, C] of point feats [N, C] over a one-corner table:
+    ``voxel_sum`` divided by max(count, 1) in the feature type, as JAX's
+    ``segment_mean``; its backward is ``point_gather`` of dy / count, the
+    gradient JAX's autodiff takes."""
+
+    @staticmethod
+    def forward(ctx, point_feats, table):
+        denom = table.t_ptr.diff().clamp(min=1).to(point_feats.dtype)[:, None]
+        ctx.table, ctx.denom = table, denom
+        return voxel_sum(point_feats, table) / denom
+
+    @staticmethod
+    def backward(ctx, dy):
+        return point_gather(dy / ctx.denom, ctx.table), None

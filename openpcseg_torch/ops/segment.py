@@ -1,8 +1,12 @@
 """Masked segment reductions over fixed-capacity padded buffers.
 
-Counterpart of ``openpcseg_tpu/ops/segment.py`` (the parts the voxel eval
-path uses). ``ids`` is int32 with -1 meaning "dropped": such rows go to an
-overflow slot ``num_segments`` that is cut off at the end.
+Counterpart of ``openpcseg_tpu/ops/segment.py`` (the parts the voxel path
+and SPVCNN's mean-voxelize use). ``ids`` is int32 with -1 meaning
+"dropped": such rows go to an overflow slot ``num_segments`` that is cut
+off at the end. These are plain PyTorch: ``index_add_`` of floats is an
+atomic add on a CUDA tensor, so the order of its sums, and their bits, vary
+from run to run there; the card's mean-voxelize runs ``ops.devox
+voxel_sum`` instead.
 """
 from __future__ import annotations
 
@@ -21,6 +25,20 @@ def segment_sum(data: torch.Tensor, ids: torch.Tensor,
     out = data.new_zeros((num_segments + 1,) + tuple(data.shape[1:]))
     out.index_add_(0, _route(ids, num_segments), data)
     return out[:num_segments]
+
+
+def segment_count(ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Histogram of ids: [num_segments] int32."""
+    return segment_sum(torch.ones_like(ids), ids, num_segments)
+
+
+def segment_mean(data: torch.Tensor, ids: torch.Tensor, num_segments: int):
+    """Mean-scatter -> (means, counts): the sum divided by max(count, 1)
+    in the data's type; empty segments give 0."""
+    s = segment_sum(data, ids, num_segments)
+    cnt = segment_count(ids, num_segments)
+    denom = cnt.clamp(min=1).to(data.dtype)
+    return s / denom.reshape((-1,) + (1,) * (data.dim() - 1)), cnt
 
 
 def segment_min_index(ids: torch.Tensor, num_segments: int) -> torch.Tensor:

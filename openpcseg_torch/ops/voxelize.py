@@ -1,8 +1,10 @@
-"""Point <-> voxel transfer: the trilinear devoxelize's plain versions.
+"""Point <-> voxel transfer: mean-voxelize and the trilinear devoxelize's
+plain versions.
 
 Counterpart of ``openpcseg_tpu/ops/voxelize.py`` (the parts the voxel path
-uses): ``_devox_apply`` (forward, K7's plain version), ``_devox_bwd``
-(its transpose, K8's plain version), and ``devox_transpose_table`` with
+and SPVCNN use): ``voxelize_mean`` (SPVCNN's point-to-voxel mean),
+``_devox_apply`` (forward, K7's plain version), ``_devox_bwd`` (its
+transpose, K8's plain version), and ``devox_transpose_table`` with
 ``devox_segments``, the deterministic transpose table K8 walks and its cut
 into bounded segments. The kernels that take these functions' place on
 the card are in ``ops/devox.py``.
@@ -11,6 +13,16 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def voxelize_mean(point_feats: torch.Tensor, table) -> torch.Tensor:
+    """Average point features into their voxel: out[v] = the mean of
+    point_feats[p] over the points p with p2v[p] = v, 0 for an empty voxel
+    (JAX ``voxelize_mean``: segment_sum / max(count, 1)). `table` is the
+    level's one-corner table (``core.geometry.p2v_table``, idx [1, N] the
+    p2v); differentiable through ``ops.devox.VoxelizeMeanFn``."""
+    from .devox import VoxelizeMeanFn
+    return VoxelizeMeanFn.apply(point_feats, table)
 
 
 def corner_offsets() -> np.ndarray:
@@ -60,8 +72,8 @@ def _devox_bwd(dout: torch.Tensor, idx: torch.Tensor, weights: torch.Tensor,
 
 def devox_transpose_table(idx: torch.Tensor, weights: torch.Tensor,
                           num_voxels: int):
-    """The CSR of idx [8, N] by voxel: (ptr [V + 1], point [8N], weight
-    [8N]), int32 / int32 / float32. The contributors (corner c, point p) of
+    """The CSR of idx [K, N] by voxel: (ptr [V + 1], point [KN], weight
+    [KN]), int32 / int32 / float32. The contributors (corner c, point p) of
     voxel v are point[ptr[v]:ptr[v+1]] with their weights, in (c, p) order:
     a stable sort by voxel, misses (idx -1) last and outside every range;
     ptr[v] is the first sorted key >= v (a binary search per voxel)."""
@@ -75,20 +87,21 @@ def devox_transpose_table(idx: torch.Tensor, weights: torch.Tensor,
     return ptr, point, weights.reshape(-1)[order].contiguous()
 
 
-def devox_segments(t_ptr: torch.Tensor, n_points: int, chunk: int):
-    """K8's work split of the transpose table: each voxel's contributor
-    range cut into segments of at most `chunk`, at least one per voxel (an
-    empty voxel's segment writes its zero row). Returns seg_ptr [V + 1], the
-    first segment of each voxel, and seg_voxel [V + ceil(8N / chunk)], the
-    voxel of each segment (-1 past the last used one), both int32. Segment
-    s of voxel v covers contributors t_ptr[v] + (s - seg_ptr[v]) * chunk up
-    to the next chunk boundary or t_ptr[v + 1]. Sizes come from the
-    capacities, so the launch needs no host sync: sum_v max(1, ceil(len_v /
-    chunk)) <= V + 8N / chunk."""
+def devox_segments(t_ptr: torch.Tensor, n_contrib: int, chunk: int):
+    """K8's work split of the transpose table of `n_contrib` (K N)
+    contributors: each voxel's contributor range cut into segments of at
+    most `chunk`, at least one per voxel (an empty voxel's segment writes
+    its zero row). Returns seg_ptr [V + 1], the first segment of each
+    voxel, and seg_voxel [V + ceil(KN / chunk)], the voxel of each segment
+    (-1 past the last used one), both int32. Segment s of voxel v covers
+    contributors t_ptr[v] + (s - seg_ptr[v]) * chunk up to the next chunk
+    boundary or t_ptr[v + 1]. Sizes come from the capacities, so the launch
+    needs no host sync: sum_v max(1, ceil(len_v / chunk)) <= V + KN /
+    chunk."""
     v = t_ptr.shape[0] - 1
     nseg = ((t_ptr.diff() + chunk - 1) // chunk).clamp(min=1)
     seg_ptr = torch.cat([t_ptr.new_zeros(1), nseg.cumsum(0, dtype=torch.int32)])
-    seg = torch.arange(v + -(-8 * n_points // chunk), dtype=torch.int32,
+    seg = torch.arange(v + -(-n_contrib // chunk), dtype=torch.int32,
                        device=t_ptr.device)
     owner = torch.searchsorted(seg_ptr[1:], seg, right=True, out_int32=True)
     return seg_ptr, torch.where(owner < v, owner, -1)

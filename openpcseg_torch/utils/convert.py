@@ -1,14 +1,16 @@
-"""Load JAX (flax) MinkUNet variables into the port's MinkUNet.
+"""Load JAX (flax) MinkUNet and SPVCNN variables into the port's models.
 
 ``jax_params_to_torch(params, batch_stats, model)`` takes the numpy pytrees
 (nested dicts) of ``TrainState.params`` / ``.batch_stats`` and fills every
-parameter and buffer of an ``openpcseg_torch.models.MinkUNet``:
+parameter and buffer of an ``openpcseg_torch.models.MinkUNet`` or
+``SPVCNN``:
 
 - a conv ``kernel`` [K*Cin, Cout] becomes the weight [K, Cin, Cout] in
   ``kernel_offsets`` order (layers.py:104-105); 1x1 kernels stay [Cin, Cout];
 - flax auto-names modules per class in creation order (BasicConvBlock_i,
-  ResidualBlock_i, SparseConv_i, MaskedBatchNorm_i, StackedBlocks_i), which
-  the walk below reproduces;
+  ResidualBlock_i, SparseConv_i, MaskedBatchNorm_i, StackedBlocks_i and
+  SPVCNN's PointTransform_i), which the walks below reproduce; a Dense
+  ``kernel`` [Cin, Cout] is the Linear weight transposed;
 - blocks 2..n of a stage with n >= 3 live in ``StackedBlocks_j`` with every
   leaf stacked on axis 0 (layers.py:347-356) and are unstacked here.
 
@@ -114,24 +116,43 @@ class _Loader:
                 self.residual(b, base, stack=j)
 
 
+    def dense(self, linear, path: Path) -> None:
+        self.put(linear.weight, self.take("params", path + ("kernel",),
+                                          None).T)
+        self.put(linear.bias, self.take("params", path + ("bias",), None))
+
+    def point_transform(self, pt) -> None:
+        path = (self.next("PointTransform"),)
+        self.dense(pt.linear, path + ("Dense_0",))
+        self.bn(pt.bn, path + ("MaskedBatchNorm_0",))
+
+    def up(self, model, i: int, scan_blocks: bool) -> None:
+        self.conv(model.ups[i], (self.next("SparseConv"),))
+        self.bn(model.up_bns[i], (self.next("MaskedBatchNorm"),))
+        self.blocks(model.up_blocks[i], scan_blocks)
+
+
 def jax_params_to_torch(params, batch_stats, model,
                         scan_blocks: bool = True):
-    """Fill `model` (openpcseg_torch MinkUNet) from flax variables; returns
-    the model. scan_blocks=False matches OPENPCSEG_SCAN_BLOCKS=0 trees."""
+    """Fill `model` (openpcseg_torch MinkUNet or SPVCNN) from flax
+    variables; returns the model. scan_blocks=False matches
+    OPENPCSEG_SCAN_BLOCKS=0 trees. The walk is flax's creation order: for
+    SPVCNN the point MLPs come after the down stages and after up stages
+    1 and 3."""
     ld = _Loader(params, batch_stats, model)
+    pts = list(getattr(model, "point_transforms", ()))
     for blk in model.stem:
         ld.basic(blk, (ld.next("BasicConvBlock"),))
     for down, blocks in zip(model.downs, model.down_blocks):
         ld.basic(down, (ld.next("BasicConvBlock"),))
         ld.blocks(blocks, scan_blocks)
-    for up, bn, blocks in zip(model.ups, model.up_bns, model.up_blocks):
-        ld.conv(up, (ld.next("SparseConv"),))
-        ld.bn(bn, (ld.next("MaskedBatchNorm"),))
-        ld.blocks(blocks, scan_blocks)
-    ld.put(model.classifier.weight,
-           ld.take("params", ("classifier", "kernel"), None).T)
-    ld.put(model.classifier.bias,
-           ld.take("params", ("classifier", "bias"), None))
+    for i in range(len(model.ups)):
+        if pts and i in (0, 2):
+            ld.point_transform(pts[i // 2])
+        ld.up(model, i, scan_blocks)
+    if pts:
+        ld.point_transform(pts[2])
+    ld.dense(model.classifier, ("classifier",))
 
     unused = sorted("/".join(k) for k in set(ld.src) - ld.used)
     if unused:

@@ -11,7 +11,8 @@ import pytest
 import torch
 import yaml
 
-from openpcseg_torch.core.geometry import build_parity_plan, devox_table
+from openpcseg_torch.core.geometry import (build_parity_plan, devox_table,
+                                           p2v_table)
 from openpcseg_torch.engine.task import SegTask
 from openpcseg_torch.ops import cuda_lib, devox, subm_conv, updown
 
@@ -37,7 +38,8 @@ SLICE_MODULES = [
     "openpcseg_torch.utils.reporting", "openpcseg_torch.utils.checkpoint",
     "openpcseg_torch.engine.trainer", "openpcseg_torch.cli",
     "openpcseg_torch.cli.train", "openpcseg_torch.cli.infer",
-    "openpcseg_torch.cli.golden_run",
+    "openpcseg_torch.cli.golden_run", "openpcseg_torch.models.spvcnn",
+    "openpcseg_torch.data.fusion_view",
 ]
 
 
@@ -65,6 +67,27 @@ def test_chip_smoke_model_is_the_mk34_cr10_config():
     assert (chip_smoke.CFGS["TPU"]["VOXEL_CAP_PER_SCAN"]
             == cfg["TPU"]["VOXEL_CAP_PER_SCAN"])
     assert chip_smoke.N_POINTS == cfg["TPU"]["POINT_CAP_PER_SCAN"]
+
+
+def test_chip_smoke_spvcnn_is_the_mk34_cr10_config():
+    import chip_smoke
+    cfg = yaml.safe_load((ROOT / chip_smoke.SPV_ENTRY_CFG).read_text())
+    assert chip_smoke.SPV_MODEL_CFG == cfg["MODEL"]
+    assert chip_smoke.SPV_OPTIM_CFG == cfg["OPTIM"]
+    assert chip_smoke.SPV_CFGS["MODALITY"] == cfg["MODALITY"] == "fusion"
+    assert (chip_smoke.SPV_CFGS["TPU"]["VOXEL_CAP_PER_SCAN"]
+            == cfg["TPU"]["VOXEL_CAP_PER_SCAN"])
+    assert chip_smoke.N_POINTS == cfg["TPU"]["POINT_CAP_PER_SCAN"]
+
+
+def test_fusion_view_is_a_copy_of_the_jax_module():
+    """openpcseg_torch/data/fusion_view.py is the JAX package's module
+    with a longer docstring: the code after the docstring is the same."""
+    def code(path):
+        text = path.read_text()
+        return text[text.index('"""', 3) + 3:]
+    assert code(ROOT / "openpcseg_torch/data/fusion_view.py") == code(
+        ROOT / "openpcseg_tpu/data/fusion_view.py")
 
 
 def test_segtask_targets_the_card_by_default():
@@ -106,6 +129,8 @@ def _calls(rng):
     idx = torch.full((8, 16), -1, dtype=torch.int32)
     wts = torch.zeros(8, 16)
     tbl = devox_table(idx, wts, 16)
+    p2v = p2v_table(torch.full((16,), -1, dtype=torch.int32), 16)
+    z = _flag(torch.zeros(16, 8))
     return {
         "subm": lambda: subm_conv.subm_conv(f, w27, km27),
         "down": lambda: updown.down_conv(f, w8, km8),
@@ -116,6 +141,8 @@ def _calls(rng):
         "up_bwd": lambda: updown.up_conv_bwd(d, f, w8, km8, km8),
         "dw": lambda: subm_conv.gather_dw(f, km27, f, None),
         "devox_bwd": lambda: devox.devoxelize_bwd(f, tbl),
+        "vmean": lambda: devox.voxel_sum(z, p2v),
+        "vmean_bwd": lambda: devox.point_gather(z, p2v),
     }
 
 
@@ -132,7 +159,7 @@ def no_library(monkeypatch, tmp_path):
 
 
 WRAPPERS = ["subm", "down", "up", "devox", "subm_bwd", "down_bwd", "up_bwd",
-            "dw", "devox_bwd"]
+            "dw", "devox_bwd", "vmean", "vmean_bwd"]
 
 
 @pytest.mark.parametrize("name", WRAPPERS)

@@ -363,3 +363,46 @@ def test_devox_kernels_long_voxel_and_misses(dtype, c, empty):
         return
     _close(out, devox.devoxelize_plain(x, t.idx, t.weights))
     _close(dvox, _devox_bwd(d, t.idx, t.weights, v))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("level,c", [(4, 256), (2, 128), (2, 12)])
+def test_voxelize_mean_kernels(dtype, level, c):
+    """SPVCNN's mean-voxelize on the card: the sum (K8 over the p2v table)
+    and its transpose (K7) against their plain versions (segment_sum, the
+    gather), bit for bit twice, counted apart; VoxelizeMeanFn's forward and
+    backward against segment_mean and autograd through it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from openpcseg_torch.ops.segment import segment_mean
+    from openpcseg_torch.ops.voxelize import voxelize_mean
+    cfgs = {"DATA": {"VOXEL_SIZE": 0.05},
+            "MODEL": {"NAME": "SPVCNN", "BLOCK": "ResBlock"},
+            "TPU": {"VOXEL_CAP_PER_SCAN": 8192,
+                    "VOXEL_CAP_RATIOS": [1.0, 1.0, 0.6, 0.3, 0.15]}}
+    task = SegTask(cfgs, 20, device="cuda", compute_dtype=torch.bfloat16)
+    _, p = task.preprocess(batch_to_device(raycast_batch(0, 1, cap=8192),
+                                           "cuda"))
+    g = torch.Generator(device="cuda").manual_seed(17)
+    t, lv = p.p2v[level], p.levels[level]
+    z = torch.where(p.points.valid[:, None],
+                    torch.randn(t.idx.shape[1], c, device="cuda",
+                                generator=g), 0.0).to(dtype)
+    n = dict(cuda_lib.LAUNCHES)
+    s = _twice(devox.voxel_sum, z, t)
+    # the plain bf16 sum (segment_sum, as JAX's) adds in bf16; K8 adds in
+    # float32 and casts once: hold both types to the float32 sum
+    _close(s, devox.voxel_sum_plain(z.float(), t))
+    dy = _feats(lv, c, g).to(dtype)
+    back = _twice(devox.point_gather, dy, t)
+    _close(back, devox.point_gather_plain(dy, t))
+    assert (back[~p.points.valid] == 0).all()
+    assert cuda_lib.LAUNCHES["vmean"] == n["vmean"] + 2
+    assert cuda_lib.LAUNCHES["vmean_bwd"] == n["vmean_bwd"] + 2
+    zg = z.float().requires_grad_()
+    mean = voxelize_mean(zg, t)
+    _close(mean, segment_mean(z.float(), t.idx[0], t.num_voxels)[0])
+    mean.backward(dy.float())
+    want = zg.detach().requires_grad_()
+    segment_mean(want, t.idx[0], t.num_voxels)[0].backward(dy.float())
+    _close(zg.grad, want.grad)

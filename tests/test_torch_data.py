@@ -1,7 +1,8 @@
 """The port's copies of the JAX package's numpy host modules, held to
 their originals: SemanticKITTI metadata, augmentation, the scan reader,
-the synthetic scans, the voxel view and its BatchLoader (byte-identical
-batches over two epochs, training and eval with <pad> tails), the
+the synthetic scans, the voxel and fusion views and their BatchLoader
+(byte-identical batches over two epochs, training and eval with <pad>
+tails; the fusion view's range image and pxpy), the
 ray-cast tree writer (the same bytes as tools/scripts/make_raycast_kitti.py),
 and the logging, TensorBoard and report utilities."""
 import logging
@@ -146,6 +147,30 @@ def test_batch_loader_yields_jax_batches_over_two_epochs(tree, training):
             _same_batch(g, w)
 
 
+@pytest.mark.parametrize("training", [True, False])
+def test_fusion_loader_yields_jax_batches_over_two_epochs(tree, training):
+    """The fusion view (the copy in openpcseg_torch/data/fusion_view.py):
+    the same bytes as JAX's SemkittiFusionDataset, the range image and
+    pxpy included, over two epochs."""
+    tcfg, jcfg = _data_cfgs(tree)
+    kw = dict(training=training, point_cap=4096, num_workers=2, seed=3)
+    tset, tload = tdata.build_dataloader(tcfg, "fusion", 2, **kw)
+    jset, jload = jdata.build_dataloader(jcfg, "fusion", 2, **kw)
+    assert type(tset).__name__ == type(jset).__name__ == (
+        "SemkittiFusionDataset")
+    assert len(tload) == len(jload) == 2
+    for _ in range(2):
+        got, want = list(tload), list(jload)
+        assert len(got) == len(want) == 2
+        for g, w in zip(got, want):
+            assert g["range_image"].shape == (2, 64, 2048, 5)
+            assert g["pxpy"].shape == (2, 4096, 2)
+            assert g["feats"].shape[-1] == 5
+            _same_batch(g, w)
+        tset.resample()
+        jset.resample()
+
+
 def test_loader_rank_and_unported_views(tree):
     tcfg, _ = _data_cfgs(tree)
     assert tdata.rank_and_world() == (0, 1)
@@ -153,7 +178,7 @@ def test_loader_rank_and_unported_views(tree):
     assert (load.process_index, load.local_bs) == (0, 2)
     for modality, ds, item in (("range", "semantickitti", 14),
                                ("cylinder", "semantickitti", 12),
-                               ("fusion", "scribblekitti", 11),
+                               ("fusion", "waymo", 15),
                                ("voxel", "waymo", 15)):
         cfg, _ = _data_cfgs(tree, DATASET=ds)
         with pytest.raises(NotImplementedError, match=f"item {item}"):

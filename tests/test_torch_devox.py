@@ -20,7 +20,8 @@ from test_torch_kernels import (PALLAS_DEVOX_TOL, devox_tables,
                                 small_pallas_config)  # noqa
 
 import openpcseg_tpu.ops.pallas_devox as pd
-from openpcseg_torch.core.geometry import DEVOX_CHUNK, devox_table
+from openpcseg_torch.core.geometry import (DEVOX_CHUNK, devox_table,
+                                           p2v_table)
 from openpcseg_torch.ops import cuda_lib, devox
 from openpcseg_torch.ops.voxelize import _devox_bwd
 
@@ -29,8 +30,8 @@ F32 = np.float32
 
 def numpy_devox_tables(idx, w, num_voxels, chunk):
     """(t_ptr, t_point, t_weight, seg_ptr, seg_voxel) built in numpy: a
-    stable sort of the (corner, point) contributors by voxel, and each
-    voxel's range cut into max(1, ceil(len / chunk)) segments."""
+    stable sort of the (corner, point) contributors of idx [K, N] by voxel,
+    and each voxel's range cut into max(1, ceil(len / chunk)) segments."""
     n = idx.shape[1]
     flat = idx.reshape(-1).astype(np.int64)
     key = np.where(flat >= 0, flat, num_voxels)
@@ -42,7 +43,7 @@ def numpy_devox_tables(idx, w, num_voxels, chunk):
         ns = max(1, -(-int(counts[v]) // chunk))
         seg_voxel += [v] * ns
         seg_ptr.append(seg_ptr[-1] + ns)
-    cap = num_voxels + -(-8 * n // chunk)
+    cap = num_voxels + -(-idx.size // chunk)
     assert len(seg_voxel) <= cap
     seg_voxel += [-1] * (cap - len(seg_voxel))
     return (ptr, (order % n).astype(np.int32), w.reshape(-1)[order],
@@ -116,10 +117,24 @@ def long_voxel_scene(rng, n=300, v=16, c=8):
     return vf, idx, w
 
 
+def p2v_scene(rng, n=300, v=16, c=8):
+    """A one-corner table, as core.geometry.p2v_table builds: each point
+    in one voxel below v - 2 or none (-1), weight 1 where it hits; voxel 5
+    holds about a third of the points, voxels v - 2 and v - 1 none."""
+    p2v = rng.integers(0, v - 2, n).astype(np.int32)
+    p2v[rng.random(n) < 1 / 3] = 5
+    p2v[rng.random(n) < 0.15] = -1
+    vf = rng.normal(size=(v, c)).astype(F32)
+    vf[v - 2:] = 0.0
+    return vf, p2v[None], (p2v >= 0).astype(F32)[None]
+
+
 def _scene(rng, kind):
     """A scene whose last two voxels are never hit (padding rows)."""
     if kind == "long":
         return long_voxel_scene(rng)
+    if kind == "p2v":
+        return p2v_scene(rng)
     vf, idx, w = devox_tables(rng, 200, 70, 8)
     return np.concatenate([vf, np.zeros((2, 8), F32)]), idx, w
 
@@ -131,7 +146,7 @@ def _table(idx, w, v, chunk):
 KINDS = ["random", "long"]
 
 
-@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("kind", KINDS + ["p2v"])
 @pytest.mark.parametrize("chunk", [4, 16, DEVOX_CHUNK])
 def test_devox_table_matches_numpy(rng, kind, chunk):
     vf, idx, w = _scene(rng, kind)
@@ -155,7 +170,7 @@ def _emulated(rng, kind, chunk, groups):
     return got, vf, idx, w, d, tbl
 
 
-@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("kind", KINDS + ["p2v"])
 @pytest.mark.parametrize("chunk", [4, 16, DEVOX_CHUNK])
 @pytest.mark.parametrize("groups", [1, 2, 4])
 def test_k8_summation_order_matches_plain(rng, kind, chunk, groups):
@@ -193,6 +208,36 @@ def test_devox_bwd_launch_gets_the_segment_table(rng, monkeypatch):
     n_seg = tbl.seg_voxel.shape[0]
     assert n_seg == vf.shape[0] + -(-8 * idx.shape[1] // 16)
     assert a[9:] == (n_seg, 8, 16)
+
+
+def test_one_corner_table_launches(rng, monkeypatch):
+    """The mean-voxelize on the card over a p2v table (idx [1, N]): K8
+    gets a segment grid of V + ceil(N / chunk), K7 the corner count 1,
+    each counted under its own counter."""
+    calls = []
+    monkeypatch.setattr(cuda_lib, "check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(cuda_lib, "launch",
+                        lambda name, counter, *a: calls.append(
+                            (name, counter, a)))
+    vf, idx, _ = p2v_scene(rng)
+    tbl = p2v_table(torch.as_tensor(idx[0]), vf.shape[0])
+    n = idx.shape[1]
+    devox.voxel_sum(_flag(torch.zeros(n, 8)), tbl)
+    devox.point_gather(_flag(torch.zeros(vf.shape[0], 8)), tbl)
+    (k8, k8_counter, a8), (k7, k7_counter, a7) = calls
+    assert (k8, k8_counter) == ("opcs_devox_bwd_f32", "vmean")
+    assert a8[9:] == (vf.shape[0] + -(-n // DEVOX_CHUNK), 8, DEVOX_CHUNK)
+    assert (k7, k7_counter) == ("opcs_devox_f32", "vmean_bwd")
+    assert a7[1:3] == (tbl.idx.data_ptr(), tbl.weights.data_ptr())
+    assert a7[4:] == (n, 8, 1)
+
+
+def test_devox_rejects_a_corner_count_without_a_kernel(rng, monkeypatch):
+    """K7 is built for 8 corners (trilinear) and 1 (a p2v table)."""
+    monkeypatch.setattr(cuda_lib, "check_cuda", lambda *a, **k: None)
+    idx = torch.zeros(2, 16, dtype=torch.int32)
+    with pytest.raises(ValueError, match=r"\[8, N\] or \[1, N\]"):
+        devox.devoxelize(_flag(torch.zeros(4, 8)), idx, torch.ones(2, 16))
 
 
 def test_devox_bwd_rejects_a_table_that_does_not_fit(rng):
