@@ -5,8 +5,10 @@
 
 The main paths are the eval and train steps of MinkUNet mk34_cr10 (the
 MODEL and OPTIM blocks of tools/cfgs/voxel/semantic_kitti/
-minkunet_mk34_cr10.yaml) and of SPVCNN mk34_cr10 (tools/cfgs/fusion/
-semantic_kitti/spvcnn_mk34_cr10.yaml), at full width, with weights drawn
+minkunet_mk34_cr10.yaml), of SPVCNN mk34_cr10 (tools/cfgs/fusion/
+semantic_kitti/spvcnn_mk34_cr10.yaml) and of Cylinder3D cy480_cr10
+(tools/cfgs/voxel/semantic_kitti/cylinder_cy480_cr10.yaml), at full
+width, with weights drawn
 from a seeded torch.Generator, on 131,072-point ray-cast scans, computing
 in bfloat16 through eight hand-written CUDA kernels (openpcseg_torch/csrc):
 
@@ -17,6 +19,11 @@ in bfloat16 through eight hand-written CUDA kernels (openpcseg_torch/csrc):
 
 SPVCNN's mean-voxelize runs K8 over each p2v table (its sum, eval and
 train) and K7 over it (its backward), counted apart as vmean / vmean_bwd.
+Cylinder3D runs its submanifold convs (3^3 and anisotropic kernels, the
+rows of the 3^3 map) on K1 / K2, its k3 strided convs on the gather-GEMM
+and gather_dw (counted as strided / strided_bwd / strided_dw; JAX runs
+them on XLA), and its refinement gather on K7 over the level-0 p2v table
+(K8 back; the vmean counters).
 
 Phases, in order (any failure exits non-zero and prints no result line):
   1. the card's name and power limit; TF32 off for matmuls and cuDNN;
@@ -76,7 +83,22 @@ Phases, in order (any failure exits non-zero and prints no result line):
      reference (as 9, under SPVCNN's own JAX reading), and the train CLI
      on the SPVCNN yaml as it stands (the
      fusion view) at batch 2 for one epoch over the same tree, then the
-     infer CLI with --save_pred, every counter launched over the phase.
+     infer CLI with --save_pred, every counter launched over the phase;
+ 12. Cylinder3D phases: serving (as 4, on its forward counters), the eval
+     profile and its idle share, its kernel cases on scan 0's pyramid
+     (CYL_SUBM's submanifold convs forward and backward, CYL_STRIDED's
+     strided convs down and up, forward and backward, the refinement
+     gather and its backward, each against its plain version, twice, bit
+     for bit, timed), the point branch's share of the eval step's device
+     time, and the scatter-max (the card's forward and backward
+     equal the CPU's, the backward repeats bit for bit); the count of the
+     8192-point scan's points whose cylindrical cell the card and the CPU
+     put apart (where not 0, the card's reference runs take the CPU's
+     tables); the eval reference (as 5); training (as 8, every counter of
+     its path on every step); the training reference (as 9, under its own
+     JAX reading and floor); the train CLI on its yaml as it stands at
+     batch 2 for one epoch, a resumed second, and the infer CLI with
+     --save_pred --save_raw_ids.
 Every kernel case carries CUDA-event ms of the wrapper and of the plain
 version, the kernel's profiler device ms, and its bound (bound_ms: bytes
 over the memory rate or operations over the peak rate, whichever is
@@ -93,6 +115,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import hashlib
 import inspect
 import json
@@ -231,14 +254,32 @@ def train_ref_rule(reading):
 
 TRAIN_REF_LOSS_MEAN, TRAIN_REF = train_ref_rule(JAX_TRAIN_READING)
 SPV_TRAIN_REF_LOSS_MEAN, SPV_TRAIN_REF = train_ref_rule(JAX_SPV_TRAIN_READING)
-# the floor of any one step against the CPU float32 step: a gross loss
-# difference, and the cosines of the spread of JAX's MinkUNet draws, their
-# lowest less TRAIN_REF_MARGIN (every row lies above it)
-TRAIN_GROSS = (0.03, min(r[1] for r in JAX_TRAIN_READING) - TRAIN_REF_MARGIN,
-               min(r[2] for r in JAX_TRAIN_READING) - TRAIN_REF_MARGIN)
+def train_ref_floor(reading):
+    """The floor a model's JAX reading sets under any one step against the
+    CPU float32 step: a gross loss difference, and the cosines of the
+    spread of JAX's draws, their lowest less TRAIN_REF_MARGIN (every row
+    of the model lies above it)."""
+    return (0.03, min(r[1] for r in reading) - TRAIN_REF_MARGIN,
+            min(r[2] for r in reading) - TRAIN_REF_MARGIN)
+
+
+# MinkUNet's floor; SPVCNN's rows lie above it too, Cylinder3D's do not
+# (JAX's own worst conv cosine reads 0.8184 on one draw), and each model's
+# draws are held to its own floor and rows
+TRAIN_GROSS = train_ref_floor(JAX_TRAIN_READING)
 FWD_COUNTERS = ("subm", "down", "up", "devox")
 # SPVCNN's mean-voxelize (K8 over the p2v table) and its backward (K7)
 SPV_COUNTERS = ("vmean", "vmean_bwd")
+# MinkUNet's path: every counter but SPVCNN's and Cylinder3D's
+MINK_COUNTERS = ("subm", "down", "up", "devox", "subm_bwd", "down_bwd",
+                 "up_bwd", "dw", "devox_bwd")
+# Cylinder3D's path: its submanifold convs (3^3 and anisotropic) on K1 / K2
+# and dW, its k3 strided convs on the gather-GEMM (forward, dfeats) and
+# gather_dw (dW), and its refinement gather over the level-0 p2v table (K7
+# forward, K8 backward: the vmean counters)
+CYL_FWD = ("subm", "strided", "vmean_bwd")
+CYL_NEED = CYL_FWD + ("subm_bwd", "dw", "strided_bwd", "strided_dw",
+                      "vmean")
 # entry-point phase: the train CLI on the yaml as it stands, at this batch,
 # over a ray-cast tree of (train scans in 00, val scans in 08)
 ENTRY_CFG = "tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10.yaml"
@@ -254,6 +295,52 @@ SPV_CFGS = dict(CFGS, MODALITY="fusion", MODEL=SPV_MODEL_CFG)
 SPV_TRAIN_CFGS = dict(SPV_CFGS, OPTIM=SPV_OPTIM_CFG)
 SPV_ENTRY_CFG = "tools/cfgs/fusion/semantic_kitti/spvcnn_mk34_cr10.yaml"
 VMEAN = [(4, 256), (2, 128)]    # (p2v level, C): z1 into L4, z2 into L2
+# == the blocks of tools/cfgs/voxel/semantic_kitti/cylinder_cy480_cr10.yaml
+# (its OPTIM block is the mk34 yaml's): Cylinder3D's phases
+CYL_MODEL_CFG = {
+    "NAME": "Cylinder_TS",
+    "IGNORE_LABEL": 0,
+    "IN_FEATURE_DIM": 9,
+    "DROPOUT_P": 0.0,
+    "LABEL_SMOOTHING": 0.0,
+    "INIT_SIZE": 32,
+    "POINT_REFINEMENT": True,
+    "IF_DIST": True,
+}
+CYL_CFGS = {
+    "MODALITY": "cylinder",
+    "DATA": {"DATASET": "semantickitti",
+             "CYLINDER_GRID_SIZE": [480, 360, 32],
+             "CYLINDER_SPACE_MAX": [50, 180, 2],
+             "CYLINDER_SPACE_MIN": [0, -180, -4]},
+    "MODEL": CYL_MODEL_CFG,
+    "TPU": {"POINT_CAP_PER_SCAN": 131072, "VOXEL_CAP_PER_SCAN": 98304,
+            "VOXEL_CAP_RATIOS": [1.0, 0.55, 0.3, 0.2, 0.15]},
+}
+CYL_TRAIN_CFGS = dict(CYL_CFGS, OPTIM=OPTIM_CFG)
+CYL_ENTRY_CFG = "tools/cfgs/voxel/semantic_kitti/cylinder_cy480_cr10.yaml"
+CYL_TRAIN_REF_INPUTS = "1c93deddac9ac2a3"
+JAX_CYL_TRAIN_READING = ((1.0630e-4, 0.979020, 0.850750),
+                         (5.4573e-5, 0.983082, 0.827842),
+                         (6.0481e-5, 0.986186, 0.857272),
+                         (6.8105e-5, 0.975578, 0.864149),
+                         (2.5805e-5, 0.986278, 0.873207),
+                         (6.5025e-5, 0.983732, 0.850572),
+                         (1.0789e-4, 0.979714, 0.826652),
+                         (1.3552e-4, 0.982435, 0.850376),
+                         (4.7976e-5, 0.981643, 0.818435),
+                         (5.2981e-5, 0.984151, 0.824961))
+PORT_CPU_CYL_BF16_READING = ((2.0116e-5, 0.985820, 0.856317),
+                             (1.5002e-5, 0.978819, 0.830292),
+                             (7.6934e-5, 0.986498, 0.882815),
+                             (7.3871e-5, 0.985416, 0.870767),
+                             (1.3467e-4, 0.986376, 0.894934),
+                             (4.7387e-5, 0.982571, 0.868790),
+                             (3.0684e-6, 0.985430, 0.877124),
+                             (1.1296e-4, 0.984965, 0.858687),
+                             (3.3754e-5, 0.983987, 0.872928),
+                             (1.3639e-5, 0.982681, 0.845566))
+CYL_TRAIN_REF_LOSS_MEAN, CYL_TRAIN_REF = train_ref_rule(JAX_CYL_TRAIN_READING)
 # the training reference of each model: (train config, digest of the draws
 # and seed_weights(SEED), JAX's reading, the port's CPU bf16 reading,
 # report key, log tag)
@@ -263,6 +350,9 @@ TRAIN_REF_MODELS = {
     "SPVCNN": (SPV_TRAIN_CFGS, SPV_TRAIN_REF_INPUTS, JAX_SPV_TRAIN_READING,
                PORT_CPU_SPV_BF16_READING, "spvcnn_train_reference",
                "spv-train-ref"),
+    "Cylinder_TS": (CYL_TRAIN_CFGS, CYL_TRAIN_REF_INPUTS,
+                    JAX_CYL_TRAIN_READING, PORT_CPU_CYL_BF16_READING,
+                    "cylinder_train_reference", "cyl-train-ref"),
 }
 # the least time a call could take (bound_ms): the larger of the bytes it
 # must move (each input read once, each output written once) over the
@@ -307,6 +397,18 @@ KERNELS = {
         counter="devox_bwd", vmean_counter="vmean"),
 }
 KERNELS["K7_devoxelize"]["vmean_counter"] = "vmean_bwd"
+# the counters of each kernel on Cylinder3D's path: K1 / K2 its submanifold
+# convs (3^3 and anisotropic) and their dW; K3 and K5 the gather-GEMM and
+# gather_dw over its k3 strided maps, forward and backward (JAX runs these
+# convs on XLA, not on a Pallas kernel); K7 / K8 its refinement gather over
+# the level-0 p2v table and its backward
+for _name, _cyl in (("K1_subm_conv", ("subm",)),
+                    ("K2_subm_conv_bwd", ("subm_bwd", "dw")),
+                    ("K3_down_conv", ("strided",)), ("K4_up_conv", ()),
+                    ("K5_up_conv_bwd", ("strided_bwd", "strided_dw")),
+                    ("K6_down_conv_bwd", ()), ("K7_devoxelize", ("vmean_bwd",)),
+                    ("K8_devoxelize_bwd", ("vmean",))):
+    KERNELS[_name]["cyl_counters"] = _cyl
 SUBM_PAIRS = [(0, 4, 32), (0, 32, 32), (1, 32, 32), (2, 32, 64), (2, 64, 64),
               (3, 64, 128), (3, 128, 128), (4, 128, 256), (4, 256, 256),
               (3, 384, 256), (3, 256, 256), (2, 192, 128), (2, 128, 128),
@@ -334,6 +436,25 @@ def cuda_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def events_ms(fn, reps: int) -> float:
+    """Device time per call of fn() by CUDA events, with the host ahead of
+    the card: a spin kernel (torch.cuda._sleep, ~10 ms) holds the card
+    while the host enqueues `reps` calls, so the events time the calls'
+    kernels and the gaps between them, not the host's enqueue (a host
+    slower than the spin reads high, never low)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -704,9 +825,61 @@ def serving_phase(task, report, tag="serve", need=FWD_COUNTERS, key=""):
     return launches
 
 
-def reference_phase(report, cfgs=CFGS, tag="reference"):
+def to_device(obj, dev):
+    """A copy of the tensors of `obj` (a tensor, dataclass, named tuple,
+    tuple, list or dict of them, nested) on `dev`."""
+    if torch.is_tensor(obj):
+        return obj.to(dev)
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: to_device(getattr(obj, f.name), dev)
+            for f in dataclasses.fields(obj)})
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(to_device(x, dev) for x in obj))
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_device(x, dev) for x in obj)
+    if isinstance(obj, dict):
+        return {k: to_device(v, dev) for k, v in obj.items()}
+    return obj
+
+
+def tables_from_cpu(task, cfgs, **task_kw):
+    """Make the card's `task` take the voxel tables and pyramid of the CPU
+    (a CPU SegTask of `cfgs` builds them, then they move to the card): so
+    a card-against-CPU comparison holds the network, not a point whose
+    cylindrical cell the card's float32 rounds into another."""
+    from openpcseg_torch.engine.task import SegTask
+    cpu = SegTask(cfgs, NUM_CLASS, device="cpu", **task_kw)
+    task.preprocess = lambda b: to_device(cpu.preprocess(to_device(
+        b, "cpu")), "cuda")
+
+
+def cells_moved(cfgs, scan):
+    """The valid points of the numpy `scan` whose cylindrical cell differs
+    between the card and the CPU (sqrt and atan2 may round apart)."""
+    from openpcseg_torch.core.batch import cylinder_points_batch
+    from openpcseg_torch.engine.task import batch_to_device
+
+    data = cfgs["DATA"]
+    grids = {}
+    for dev in ("cuda", "cpu"):
+        b = batch_to_device(scan, dev)
+        vb = cylinder_points_batch(
+            b["xyz"], b["feats"][..., 3:], b["labels"], b["valid"],
+            space_min=data["CYLINDER_SPACE_MIN"],
+            space_max=data["CYLINDER_SPACE_MAX"],
+            grid_size=data["CYLINDER_GRID_SIZE"], voxel_cap=8192,
+            num_class=NUM_CLASS)
+        grids[dev] = vb.point_grid.cpu()
+    diff = (grids["cuda"] != grids["cpu"]).any(-1) & torch.as_tensor(
+        scan["valid"]).reshape(-1)
+    return int(diff.sum())
+
+
+def reference_phase(report, cfgs=CFGS, tag="reference", cpu_tables=False):
     """Same seeded weights, 8192-point scan: kernels (bf16) on the card
-    against the plain versions (float32) on the CPU."""
+    against the plain versions (float32) on the CPU; with `cpu_tables`, the
+    card's run takes the CPU's tables (tables_from_cpu)."""
     from openpcseg_torch.data.raycast import raycast_batch
     from openpcseg_torch.engine.task import SegTask, batch_to_device
 
@@ -715,6 +888,8 @@ def reference_phase(report, cfgs=CFGS, tag="reference"):
     for dev, dt in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
         t = SegTask(cfgs, NUM_CLASS, device=dev, compute_dtype=dt,
                     voxel_cap_per_scan=8192, seed=SEED)
+        if cpu_tables and dev == "cuda":
+            tables_from_cpu(t, cfgs, voxel_cap_per_scan=8192)
         _, _, lg = t.forward(batch_to_device(scan, dev))
         logits[dev] = lg.float().cpu()
     g, r = logits["cuda"], logits["cpu"]
@@ -746,14 +921,30 @@ def _device_rows(prof):
         if dev_us is None:
             dev_us = getattr(e, "cuda_time_total", 0.0)
         if (e.device_type == DeviceType.CUDA and dev_us > 0
-                and not getattr(e, "is_user_annotation", False)):
+                and not getattr(e, "is_user_annotation", False)
+                and FLUSH_KERNEL not in e.key):
             rows.append((e.key, e.count, dev_us / 1e3))
     return rows
 
 
-def _profiled(fn, calls):
+# the L2 flush between the calls of a retaken window: a bitwise_not over
+# 256 MB (five times the H100's 50 MB L2), a kernel no wrapper launches, so
+# its events are told apart by name and left out
+FLUSH_KERNEL = "bitwise_not"
+_FLUSH_BUF = []
+
+
+def _flush_l2():
+    if not _FLUSH_BUF:
+        _FLUSH_BUF.append(torch.empty(64 << 20, dtype=torch.int32,
+                                      device="cuda"))
+    _FLUSH_BUF[0].bitwise_not_()
+
+
+def _profiled(fn, calls, flush=False):
     """torch.profiler over `calls` calls of fn(), after one unprofiled
-    call; returns the profile."""
+    call (with `flush`, the L2 cache flushed before each call); returns
+    the profile."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -761,6 +952,8 @@ def _profiled(fn, calls):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
+            if flush:
+                _flush_l2()
             fn()
         torch.cuda.synchronize()
     return prof
@@ -778,25 +971,44 @@ def device_ms(fn, reps: int, floor: float = 0.0) -> float:
     quarter of `reps` from a whole number per call (after five they count
     as they are: a library call may launch a kernel on some calls only),
     or where it reads less than `floor`, the call's bound (five such fail
-    the run)."""
+    the run). The bound counts each input byte read from HBM once; a
+    call whose inputs stay in the 50 MB L2 cache from the call before can
+    beat it with every event present, so a window below the bound with
+    whole counts is taken again with the L2 flushed before each call (the
+    flush's own events left out). Where five windows fail, CUDA events
+    with the host ahead of the card (events_ms) take the reading, and one
+    below the bound fails the run."""
     def per_call(n):
         k = round(n / reps)
         return k if abs(n - k * reps) <= reps // 4 else n / reps
 
     def window():
-        got = []
+        got, flush = [], False
         for _ in range(5):
-            rows = _device_rows(_profiled(fn, reps))
+            rows = _device_rows(_profiled(fn, reps, flush))
             ms = sum(t / n * per_call(n) for _, n, t in rows)
             whole = all(per_call(n) == round(n / reps) for _, n, _ in rows)
             if rows and ms >= floor and whole:
+                if flush:
+                    log(f"[profiler] a window read below the bound "
+                        f"{floor:.4f} ms with every event present: taken "
+                        f"again with the L2 flushed, {ms:.4f} ms")
                 return ms
-            got.append((sum(n for _, n, _ in rows), ms))
+            got.append((sum(n for _, n, _ in rows), ms, flush))
+            flush = flush or bool(rows and whole)
         if rows and ms >= floor:
             return ms
-        raise SystemExit(f"profiler: five windows of {reps} calls read no "
-                         f"device time or less than the bound {floor:.4f} "
-                         f"ms a call (events, ms): {got}")
+        # five windows that lost events (or read below the bound): CUDA
+        # events with the host ahead of the card read the device instead
+        ev = events_ms(fn, reps)
+        log(f"[profiler] five windows of {reps} calls read no device time "
+            f"or less than the bound {floor:.4f} ms a call (events, ms, "
+            f"flushed): {got}; CUDA events with the host ahead read "
+            f"{ev:.4f} ms")
+        if ev >= floor:
+            return ev
+        raise SystemExit(f"profiler and CUDA events read less than the "
+                         f"bound {floor:.4f} ms a call: {got}, {ev:.4f}")
     return statistics.median(window() for _ in range(3))
 
 
@@ -828,7 +1040,7 @@ def profile_phase(task, report, key=""):
     from openpcseg_torch.engine.task import batch_to_device
 
     b = batch_to_device(raycast_batch(SEED + 1, 1, cap=N_POINTS), "cuda")
-    step_profile(f"{key}eval_step", lambda: task.eval_step(b), report)
+    return step_profile(f"{key}eval_step", lambda: task.eval_step(b), report)
 
 
 # the kernels each wrapper family launches per call, by profiler name
@@ -839,17 +1051,21 @@ FAMILY_KERNELS = {"gather_gemm": ("gather_gemm_kernel",),
                   "devox_bwd": ("devox_bwd_kernel",)}
 
 
-def _role(family, a):
+def _role(family, a, kw=None):
     """Which kernel row (K1-K8, and which pass of a backward) a wrapper
-    call with positional args `a` serves."""
+    call with positional args `a` (and keywords `kw`) serves. The gather
+    kernels over Cylinder3D's k3 strided maps have rows of their own."""
     if family == "gather_gemm":
         return {"subm": "K1", "down": "K3", "subm_bwd": "K2 dfeats",
-                "up_bwd": "K5 dfeats"}[a[3]]
+                "up_bwd": "K5 dfeats", "strided": "k3 strided",
+                "strided_bwd": "k3 strided dfeats"}[a[3]]
     if family == "parent_gemm":
         return {"up": "K4", "down_bwd": "K6 dfeats"}[a[3]]
     if family == "gather_dw":
         idx = a[1] if a[1] is not None else a[3]
-        return ("K2 dW" if idx.shape[0] == 27 else
+        if (kw or {}).get("counter", "dw") == "strided_dw":
+            return "k3 strided dW"
+        return ("K2 dW" if idx.shape[0] != 8 else
                 "K6 dW" if a[1] is not None else "K5 dW")
     return {"devox": "K7", "devox_bwd": "K8", "vmean": "K8 vmean",
             "vmean_bwd": "K7 vmean"}[family]
@@ -884,7 +1100,7 @@ def noting_work(noted):
             if family == "vmean_bwd":      # (voxel feats, one-corner table)
                 lib = (w[0], w[1].idx, w[1].weights)
             noted.append(dict(
-                family=family, role=_role(family, a), work=work(*w),
+                family=family, role=_role(family, a, kw), work=work(*w),
                 kernels=_kernels_of(family, a), args=lib))
             return out
         return noted_call
@@ -1183,7 +1399,7 @@ def training_phase(report, cfgs=TRAIN_CFGS, tag="train", need=None,
     from openpcseg_torch.engine.task import SegTask, batch_to_device
     from openpcseg_torch.ops import cuda_lib
 
-    need = need or [k for k in cuda_lib.COUNTERS if k not in SPV_COUNTERS]
+    need = need or MINK_COUNTERS
     task = SegTask(cfgs, NUM_CLASS, device="cuda",
                    compute_dtype=torch.bfloat16, seed=SEED,
                    iters_per_epoch=ITERS_PER_EPOCH)
@@ -1254,8 +1470,8 @@ def train_ref_draws():
 
 
 def seed_weights(model, seed):
-    """Overwrite `model`'s conv, classifier and point-MLP weights (in that
-    order) with draws of numpy's
+    """Overwrite `model`'s conv, classifier and point-MLP (every other
+    Linear) weights (in that order) with draws of numpy's
     generator seeded with `seed`, at the scale of the model's own
     initializer (a unit normal truncated to [-2, 2], times sqrt(1 / fan-in)
     over that normal's std): the same weights on every machine, whatever
@@ -1276,10 +1492,11 @@ def seed_weights(model, seed):
         for m in model.modules():
             if isinstance(m, SparseConv):
                 m.weight.copy_(trunc(m.weight.shape, m.fan_in))
-        w = model.classifier.weight
-        w.copy_(trunc(w.shape, w.shape[1]))
-        for m in model.modules():     # SPVCNN's point MLPs
-            if isinstance(m, torch.nn.Linear) and m is not model.classifier:
+        head = getattr(model, "classifier", None)
+        if head is not None:
+            head.weight.copy_(trunc(head.weight.shape, head.weight.shape[1]))
+        for m in model.modules():     # SPVCNN's and Cylinder3D's Linears
+            if isinstance(m, torch.nn.Linear) and m is not head:
                 m.weight.copy_(trunc(m.weight.shape, m.weight.shape[1]))
 
 
@@ -1297,12 +1514,14 @@ def inputs_digest(batches, model) -> str:
     return h.hexdigest()[:16]
 
 
-def step_against_cpu(cfgs, batch, weights_seed=None, **task_kw):
+def step_against_cpu(cfgs, batch, weights_seed=None, cpu_tables=False,
+                     **task_kw):
     """One train_step of the same weights on the numpy `batch`: the card
     (bf16, kernels) against the CPU (float32, plain versions). The weights
-    are SegTask's seeded ones, or seed_weights(`weights_seed`). Returns the
-    losses, |loss_gpu - loss_cpu| / |loss_cpu|, the cosine of the whole
-    gradient vector and each conv weight gradient's cosine."""
+    are SegTask's seeded ones, or seed_weights(`weights_seed`); with
+    `cpu_tables` the card takes the CPU's tables (tables_from_cpu).
+    Returns the losses, |loss_gpu - loss_cpu| / |loss_cpu|, the cosine of
+    the whole gradient vector and each conv weight gradient's cosine."""
     from openpcseg_torch.engine.task import SegTask, batch_to_device
     from openpcseg_torch.models.layers import SparseConv
 
@@ -1312,6 +1531,8 @@ def step_against_cpu(cfgs, batch, weights_seed=None, **task_kw):
         t0 = time.perf_counter()
         t = SegTask(cfgs, NUM_CLASS, device=dev, compute_dtype=dt, seed=SEED,
                     **task_kw)
+        if cpu_tables and dev == "cuda":
+            tables_from_cpu(t, cfgs, **task_kw)
         if weights_seed is not None:
             seed_weights(t.model, weights_seed)
         m = t.train_step(batch_to_device(batch, dev))
@@ -1356,7 +1577,7 @@ def hold_step(tag, reading, ref):
     return misses
 
 
-def train_reference_phase(report, model="MinkUNet"):
+def train_reference_phase(report, model="MinkUNet", cpu_tables=False):
     """One train_step of `model` from the weights seed_weights(SEED) on each
     of the draws of train_ref_draws: GPU (bf16, kernels) against CPU
     (float32, plain versions), held to the rule over the draws that JAX's
@@ -1369,6 +1590,7 @@ def train_reference_phase(report, model="MinkUNet"):
     cfgs, inputs, jax_reading, port_reading, key, tag = TRAIN_REF_MODELS[
         model]
     loss_mean, ref = train_ref_rule(jax_reading)
+    floor = train_ref_floor(jax_reading)
     draws = train_ref_draws()
     net = SegTask(cfgs, NUM_CLASS, device="cpu",
                   voxel_cap_per_scan=8192).model
@@ -1382,10 +1604,9 @@ def train_reference_phase(report, model="MinkUNet"):
     rows, misses = [], []
     for i, draw in enumerate(draws):
         r = step_against_cpu(cfgs, draw, weights_seed=SEED,
-                             voxel_cap_per_scan=8192,
+                             cpu_tables=cpu_tables, voxel_cap_per_scan=8192,
                              iters_per_epoch=ITERS_PER_EPOCH)
-        misses += hold_step(f"{tag} draw {i}", r,
-                            (TRAIN_GROSS[0],) + ref[i])
+        misses += hold_step(f"{tag} draw {i}", r, (floor[0],) + ref[i])
         log(f"[{tag} draw {i}] JAX bf16 vs f32 {jax_reading[i]}, port CPU "
             f"bf16 vs f32 {port_reading[i]}")
         rows.append(r)
@@ -1541,8 +1762,7 @@ def entry_point_phase(report, tmp, tree):
     if len(dumped) != ENTRY_SCANS[1] or not all(
             d["ids"] == d["points"] and d["legal"] for d in dumped):
         faults.append(f"the --save_raw_ids dump is wrong: {dumped}")
-    missing = [k for k, v in launches.items()
-               if v == 0 and k not in SPV_COUNTERS]
+    missing = [k for k in MINK_COUNTERS if launches[k] == 0]
     if missing or any(plain_on_cuda.values()):
         faults.append(f"kernels never launched {missing}, or a plain version "
                       f"ran on the card {plain_on_cuda}")
@@ -1626,7 +1846,7 @@ def spvcnn_entry_phase(report, tmp, tree):
         faults.append("voxel_overflow > 0 in metrics.jsonl")
     if len(dumped) != ENTRY_SCANS[1]:
         faults.append(f"--save_pred wrote {dumped}")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in MINK_COUNTERS + SPV_COUNTERS if launches[k] == 0]
     if missing or any(plain_on_cuda.values()):
         faults.append(f"kernels never launched {missing}, or a plain version "
                       f"ran on the card {plain_on_cuda}")
@@ -1658,38 +1878,308 @@ def spvcnn_phases(report, tmp, tree):
     report["vmean_cases"] = rows
     del task, pyr
     train = training_phase(report, SPV_TRAIN_CFGS, "spv-train",
-                           cuda_lib.COUNTERS, "spvcnn_")
+                           MINK_COUNTERS + SPV_COUNTERS, "spvcnn_")
     launches.update({k: v for k, v in train.items()
                      if k not in FWD_COUNTERS + ("vmean",)})
     train_reference_phase(report, "SPVCNN")
     return rows, launches, spvcnn_entry_phase(report, tmp, tree)
 
 
+# == Cylinder3D cy480_cr10 ==================================================
+# kernel cases at its shapes: (kernel, level, Cin, Cout) of its submanifold
+# convs (anisotropic K 9 and 3, the 3^3 at L4, the 20-class head) and
+# (coarse level, C) of its k3 strided convs, down and up
+CYL_SUBM = [((1, 3, 3), 0, 32, 32), ((3, 1, 1), 0, 32, 32),
+            ((1, 3, 3), 3, 256, 256), ((3, 1, 1), 3, 256, 256),
+            ((3, 3, 3), 4, 512, 512), ((3, 3, 3), 0, 128, 20)]
+CYL_STRIDED = [(1, 64), (4, 512)]
+CYL_POINT_C = 256     # the point MLP's width, which the scatter-max reads
+CYL_REFINE_C = 128    # up0e's width, which the refinement gathers
+
+
+def cylinder_cases(pyr, gen):
+    """Cylinder3D's kernel cases on a scan's pyramid: each submanifold
+    conv of CYL_SUBM on K1 (forward) and K2 (backward, whole), each strided
+    conv of CYL_STRIDED down into its level and up out of it on the
+    gather-GEMM (forward; rows K3) and its backward (dfeats + dW; rows K5),
+    and the refinement gather over the level-0 p2v table (K7) and its
+    backward (K8). Labels start with "cyl"."""
+    from openpcseg_torch.ops import devox, subm_conv, updown
+
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def rand(lv, c, dtype):
+        x = torch.randn(lv.capacity, c, device="cuda", generator=gen)
+        return torch.where(lv.valid[:, None], x, 0.0).to(dtype)
+
+    def weight(k, cin, cout):
+        return torch.randn(k, cin, cout, device="cuda",
+                           generator=gen) / (k * cin) ** 0.5
+
+    cases = []
+    for ks, level, cin, cout in CYL_SUBM:
+        lv = pyr.levels[level]
+        km = lv.subm_subset(ks)
+        label = f"cyl {''.join(map(str, ks))} L{level} {cin}->{cout}"
+        x, w, d = rand(lv, cin, bf), weight(km.shape[0], cin, cout), rand(
+            lv, cout, f32)
+        args = (x, w.to(bf), km)
+        cases.append(case("K1_subm_conv", label, subm_conv.subm_conv,
+                          subm_conv.subm_conv_plain, args, gemm_work(*args)))
+        d16, wt = d.to(bf), w.transpose(1, 2).to(bf).contiguous()
+        cases.append(case("K2_subm_conv_bwd", label, subm_conv.subm_conv_bwd,
+                          subm_conv.subm_conv_bwd_plain, (d, x, w, km),
+                          both(gemm_work(d16, wt, km),
+                               dw_work(x, km, d16, None))))
+    for level, c in CYL_STRIDED:
+        fine, coarse = pyr.levels[level - 1], pyr.levels[level]
+        for way, src, dst, km, km_t in (
+                ("down", fine, coarse, coarse.down_kmap, fine.up_kmap),
+                ("up", coarse, fine, fine.up_kmap, coarse.down_kmap)):
+            a, b = (level - 1, level) if way == "down" else (level, level - 1)
+            label = f"cyl strided {way} L{a}->L{b} {c}->{c}"
+            x, w, d = rand(src, c, bf), weight(27, c, c), rand(dst, c, f32)
+            args = (x, w.to(bf), km)
+            cases.append(case("K3_down_conv", label, updown.strided_conv,
+                              updown.strided_conv_plain, args,
+                              gemm_work(*args)))
+            d16, wt = d.to(bf), w.transpose(1, 2).to(bf).contiguous()
+            dwargs = ((x, km, d16, None) if km.shape[1] <= km_t.shape[1]
+                      else (x, None, d16, km_t))
+            cases.append(case("K5_up_conv_bwd", label,
+                              updown.strided_conv_bwd,
+                              updown.strided_conv_bwd_plain,
+                              (d, x, w, km, km_t),
+                              both(gemm_work(d16, wt, km_t),
+                                   dw_work(*dwargs))))
+    tbl, lv = pyr.p2v[0], pyr.levels[0]
+    up0e = rand(lv, CYL_REFINE_C, f32)
+    dp = torch.randn(tbl.idx.shape[1], CYL_REFINE_C, device="cuda",
+                     generator=gen)
+    dp = torch.where(pyr.points.valid[:, None], dp, 0.0)
+    cases.append(case("K7_devoxelize", f"cyl refine gather L0 "
+                      f"C={CYL_REFINE_C}", devox.point_gather,
+                      devox.point_gather_plain, (up0e, tbl),
+                      gather_work(up0e, tbl), library=sparse_library(
+                          devox_csr(tbl.idx, tbl.weights, lv.capacity),
+                          up0e)))
+    cases.append(case("K8_devoxelize_bwd", f"cyl refine gather bwd L0 "
+                      f"C={CYL_REFINE_C}", devox.voxel_sum,
+                      devox.voxel_sum_plain, (dp, tbl), sum_work(dp, tbl),
+                      library=sparse_library(devox_t_csr(
+                          tbl, dp.shape[0]), dp)))
+    return cases
+
+
+def scatter_max_check(pyr, report):
+    """The scatter-max voxelize (plain PyTorch on the card: JAX runs it on
+    XLA) at its shape, a float32 [points, 256] into level 0: its forward
+    and its backward on the card equal the CPU's, and two backward calls
+    on the card agree bit for bit; its device ms beside its bound (the
+    points read once, the voxels written once)."""
+    from openpcseg_torch.ops.segment import segment_max
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    p2v, cap = pyr.point_to_voxel0, pyr.levels[0].capacity
+    pts = torch.randn(p2v.shape[0], CYL_POINT_C, device="cuda",
+                      generator=gen)
+    dy = torch.randn(cap, CYL_POINT_C, device="cuda", generator=gen)
+
+    def fwd_bwd(x, ids, d):
+        x = x.clone().requires_grad_()
+        out = segment_max(x, ids, cap)
+        out.backward(d)
+        return out.detach(), x.grad
+    out, g1 = fwd_bwd(pts, p2v, dy)
+    _, g2 = fwd_bwd(pts, p2v, dy)
+    ref, gref = fwd_bwd(pts.cpu(), p2v.cpu(), dy.cpu())
+    same = bool(torch.equal(g1, g2))
+    exact = bool(torch.equal(out.cpu(), ref) and torch.equal(g1.cpu(), gref))
+    work = (p2v.numel() * 4 + pts.numel() * 4 + out.numel() * 4, 0,
+            F32_FLOPS)
+    bound_ms, _ = bound(work)
+    ms = device_ms(lambda: segment_max(pts, p2v, cap), KERNEL_REPS,
+                   bound_ms)
+    log(f"[cyl-scatter-max] [{p2v.shape[0]}, {CYL_POINT_C}] f32 into {cap} "
+        f"voxels: card == CPU forward and backward {exact}, backward "
+        f"repeats {'bit-identical' if same else 'DIFFERS'}; device {ms:.4f} "
+        f"ms, bound {bound_ms:.4f} ms")
+    report["cylinder_scatter_max"] = dict(exact=exact, bit_identical=same,
+                                          device_ms=ms, bound_ms=bound_ms)
+    if not (exact and same):
+        raise SystemExit("cylinder: the scatter-max on the card differs from "
+                         "the CPU's or does not repeat")
+
+
+def point_branch_phase(task, eval_ms, report):
+    """Device time of Cylinder3D's point branch in one eval forward on
+    scan SEED + 1 (the point MLP over every point, the scatter-max with
+    its compression, the refinement head over the level-0 rows; the
+    model's own methods, the UNet left out) and its share of the eval
+    step's device time `eval_ms`."""
+    from openpcseg_torch.data.raycast import raycast_batch
+    from openpcseg_torch.engine.task import batch_to_device
+
+    m = task.model.eval()
+    with torch.no_grad():
+        vb, pyr = task.preprocess(batch_to_device(
+            raycast_batch(SEED + 1, 1, cap=N_POINTS), "cuda"))
+        up0e = torch.zeros(pyr.levels[0].capacity, m.refine.in_features,
+                           device="cuda")
+
+        def branch():
+            pp = m.point_mlp(vb.point_feats, pyr.points.valid)
+            m.voxelize(pp, pyr)
+            m.refine_points(up0e, pp, pyr)
+        ms = profile_window("cylinder_point_branch", branch, report)
+    log(f"[profile] cylinder point branch: {ms:.3f} ms of the eval step's "
+        f"{eval_ms:.3f} ms device time ({ms / eval_ms:.1%})")
+    report["cylinder_point_branch_share"] = ms / eval_ms
+
+
+def cylinder_entry_phase(report, tmp, tree):
+    """The train CLI on the Cylinder3D yaml as it stands (the cylinder
+    view, full width, cap 98304, bf16) at batch ENTRY_BATCH over `tree`
+    for one epoch, again to two (it must resume), then the infer CLI with
+    --save_pred --save_raw_ids; its counters read over the phase."""
+    from openpcseg_torch.cli import infer, train
+    from openpcseg_torch.data.semantickitti_meta import LEARNING_MAP_INV_LUT
+    from openpcseg_torch.ops import cuda_lib
+
+    preds = Path(tmp) / "cyl_preds"
+    argv = ["--cfg_file", str(ROOT / CYL_ENTRY_CFG), "--log_dir",
+            f"{tmp}/cyl_logs", "--extra_tag", "chip_smoke", "--batch_size",
+            str(ENTRY_BATCH), "--log_interval", "1"]
+    sets = ["--set", "DATA.DATA_PATH", tree]
+    cuda_lib.reset_counts()
+    t0 = time.perf_counter()
+    for epochs in (1, 2):
+        if train.main(argv + ["--epochs", str(epochs)] + sets) != 0:
+            raise SystemExit(f"Cylinder entry point: train --epochs {epochs} "
+                             "failed")
+    if infer.main(argv + ["--save_pred", "--save_raw_ids"] + sets
+                  + ["DATA.OUTPUT_DIR", str(preds)]) != 0:
+        raise SystemExit("Cylinder entry point: infer failed")
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    plain_on_cuda = dict(cuda_lib.PLAIN_ON_CUDA)
+    logs, steps, evals, ckps = _run_logs(f"{tmp}/cyl_logs")
+    legal = set(LEARNING_MAP_INV_LUT.tolist())
+    dumped = []
+    for f in sorted(preds.glob("sequences/08/predictions/*.label")):
+        ids = np.fromfile(f, dtype=np.uint32)
+        scan = Path(tree, "08", "velodyne", f.stem + ".bin")
+        dumped.append(dict(file=f.name, ids=len(ids),
+                           points=scan.stat().st_size // 16,
+                           legal=set(np.unique(ids).tolist()) <= legal))
+    step_ms = [r["step_time"] * 1e3 for r in steps]
+    miou = evals[-1]["val_miou"] if evals else float("nan")
+    log(f"[cyl-entry] train CLI on {CYL_ENTRY_CFG}, batch {ENTRY_BATCH}: "
+        f"step ms {', '.join(f'{t:.1f}' for t in step_ms)}, val mIoU "
+        f"{miou:.2f}; {wall:.1f} s for train, resume and infer; launches "
+        f"{launches}")
+    report["cylinder_entry_point"] = dict(
+        steps=steps, evals=evals, checkpoints=ckps, dumped=dumped,
+        val_miou=miou, wall_s=wall, launches=launches,
+        plain_on_cuda=plain_on_cuda)
+    faults = []
+    n_steps = ENTRY_SCANS[0] // ENTRY_BATCH * 2
+    if "resumed from epoch 0" not in logs:
+        faults.append("the second train call did not resume from epoch 0")
+    if [r["step"] for r in steps] != list(range(1, n_steps + 1)) or not all(
+            np.isfinite(r["loss"]) for r in steps):
+        faults.append(f"train steps {steps}")
+    if ckps != ["0.pt", "1.pt"]:
+        faults.append(f"checkpoints {ckps}")
+    if any(r["voxel_overflow"] for r in steps) or any(
+            r["val_voxel_overflow"] for r in evals):
+        faults.append("voxel_overflow > 0 in metrics.jsonl")
+    if len(dumped) != ENTRY_SCANS[1] or not all(
+            d["ids"] == d["points"] and d["legal"] for d in dumped):
+        faults.append(f"the --save_raw_ids dump is wrong: {dumped}")
+    missing = [k for k in CYL_NEED if launches[k] == 0]
+    if missing or any(plain_on_cuda.values()):
+        faults.append(f"kernels never launched {missing}, or a plain version "
+                      f"ran on the card {plain_on_cuda}")
+    if faults:
+        raise SystemExit("Cylinder entry-point phase: " + "; ".join(faults))
+    return launches
+
+
+def cylinder_phases(report, tmp, tree):
+    """Cylinder3D cy480_cr10 on the card: serving (its forward counters
+    on every request), the eval profile, its idle share and its point
+    branch's share, its kernel
+    cases and the scatter-max on scan SEED's pyramid, the eval reference
+    (after counting the points whose cell the card and the CPU put apart),
+    training (every counter of its path on every step), the training
+    reference over its draws under its own JAX reading, and the entry
+    points. Returns the cases, the launches of serving and training, and
+    those of the entry phase."""
+    from openpcseg_torch.data.raycast import raycast_batch
+    from openpcseg_torch.engine.task import SegTask, batch_to_device
+
+    task = SegTask(CYL_CFGS, NUM_CLASS, device="cuda",
+                   compute_dtype=torch.bfloat16, seed=SEED)
+    launches = serving_phase(task, report, "cyl-serve", CYL_FWD, "cylinder_")
+    eval_ms = profile_phase(task, report, "cylinder_")
+    idle = 1.0 - eval_ms / report["cylinder_p50_ms"]
+    log(f"[profile] cylinder_eval_step device idle share {idle:.4f} (device "
+        f"{eval_ms:.3f} ms of the {report['cylinder_p50_ms']:.3f} ms p50)")
+    report["cylinder_eval_idle_share"] = idle
+    point_branch_phase(task, eval_ms, report)
+    _, pyr = task.preprocess(batch_to_device(
+        raycast_batch(SEED, 1, cap=N_POINTS), "cuda"))
+    log(f"[cyl-kernels] pyramid of scan {SEED}: voxels per level "
+        f"{pyr.level_counts.tolist()}, caps {task.caps}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    rows = check_cases(cylinder_cases(pyr, gen), "cyl-kernels")
+    report["cylinder_cases"] = rows
+    scatter_max_check(pyr, report)
+    del task, pyr
+    moved = cells_moved(CYL_CFGS, raycast_batch(SEED, 1, cap=8192))
+    log(f"[cylinder-reference] points of the 8192-point scan whose cell the "
+        f"card and the CPU put apart: {moved}"
+        + ("; the card's runs below take the CPU's tables" if moved else ""))
+    report["cylinder_cells_moved"] = moved
+    reference_phase(report, CYL_CFGS, "cylinder_reference", moved > 0)
+    train = training_phase(report, CYL_TRAIN_CFGS, "cyl-train", CYL_NEED,
+                           "cylinder_")
+    launches.update({k: v for k, v in train.items() if k not in CYL_FWD})
+    train_reference_phase(report, "Cylinder_TS", moved > 0)
+    return rows, launches, cylinder_entry_phase(report, tmp, tree)
+
+
 def kernel_report(rows, launches, entry_launches, spv_launches,
-                  spv_entry_launches):
+                  spv_entry_launches, cyl_launches, cyl_entry_launches):
     """The kernels JSON line: per kernel its launches on the main paths
-    (MinkUNet's serving and training phases, and SPVCNN's, whose K7 and K8
-    also count the launches of its mean-voxelize), over the entry-point
-    phases, and the MinkUNet case with the slowest plain version (the
-    whole backward for K2, K5 and K6, beside the device times of their
-    heaviest dfeats and dW passes alone), with its bound and, for K7 and
-    K8, the library call's time; K7 and K8 also their heaviest
-    mean-voxelize case."""
+    (MinkUNet's serving and training phases, SPVCNN's, whose K7 and K8
+    also count the launches of its mean-voxelize, and Cylinder3D's), over
+    the entry-point phases, and the MinkUNet case with the slowest plain
+    version (the whole backward for K2, K5 and K6, beside the device times
+    of their heaviest dfeats and dW passes alone), with its bound and, for
+    K7 and K8, the library call's time; K7 and K8 also their heaviest
+    mean-voxelize case; and Cylinder3D's heaviest case of the kernel
+    (K1 / K2 its submanifold convs, K3 / K5 its k3 strided convs' forward /
+    backward, K7 / K8 its refinement gather / its backward)."""
     kernels = []
     for name, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name
-                and not r["shape"].startswith("voxelize_mean")]
+                and not r["shape"].startswith(("voxelize_mean", "cyl"))]
         whole = [r for r in mine
                  if not r["shape"].endswith((" dfeats", " dW"))]
         heavy = max(whole, key=lambda r: r["plain_ms"])
         spv = [meta["counter"], meta.get("vmean_counter")]
+        cyl = meta["cyl_counters"]
         row = dict(
             name=name, route=meta["route"], source=meta["source"],
             replaces=meta["replaces"], launches=launches[meta["counter"]],
             spvcnn_launches=sum(spv_launches[k] for k in spv if k),
+            cylinder_launches=sum(cyl_launches[k] for k in cyl),
             entry_launches=entry_launches[meta["counter"]],
             spvcnn_entry_launches=sum(spv_entry_launches[k] for k in spv
                                       if k),
+            cylinder_entry_launches=sum(cyl_entry_launches[k] for k in cyl),
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=heavy["ms"], plain_ms=heavy["plain_ms"],
             device_ms=heavy["device_ms"], bound_ms=heavy["bound_ms"],
@@ -1706,15 +2196,18 @@ def kernel_report(rows, launches, entry_launches, spv_launches,
                 row.update({f"{part}_device_ms": h["device_ms"],
                             f"{part}_bound_ms": h["bound_ms"],
                             f"{part}_shape": h["shape"]})
-        vm = [r for r in rows if r["kernel"] == name
-              and r["shape"].startswith("voxelize_mean")]
-        if vm:
-            h = max(vm, key=lambda r: r["device_ms"])
-            row.update(vmean_launches=spv_launches[meta["vmean_counter"]],
-                       vmean_max_abs_err=max(r["max_abs_err"] for r in vm),
-                       **{f"vmean_{k}": h[k] for k in (
-                           "ms", "plain_ms", "device_ms", "bound_ms",
-                           "library_ms", "shape")})
+        for tag, prefix in (("vmean", "voxelize_mean"), ("cylinder", "cyl")):
+            got = [r for r in rows if r["kernel"] == name
+                   and r["shape"].startswith(prefix)]
+            if got:
+                h = max(got, key=lambda r: r["device_ms"])
+                row.update({f"{tag}_max_abs_err": max(
+                    r["max_abs_err"] for r in got), **{
+                        f"{tag}_{k}": h[k] for k in (
+                            "ms", "plain_ms", "device_ms", "bound_ms",
+                            "library_ms", "shape")}})
+        if "vmean_counter" in meta:
+            row["vmean_launches"] = spv_launches[meta["vmean_counter"]]
         kernels.append(row)
     return kernels
 
@@ -1801,10 +2294,13 @@ def main() -> int:
         entry_launches = entry_point_phase(report, tmp, tree)
         spv_rows, spv_launches, spv_entry_launches = spvcnn_phases(
             report, tmp, tree)
-    rows += spv_rows
+        cyl_rows, cyl_launches, cyl_entry_launches = cylinder_phases(
+            report, tmp, tree)
+    rows += spv_rows + cyl_rows
 
     kernels = kernel_report(rows, launches, entry_launches, spv_launches,
-                            spv_entry_launches)
+                            spv_entry_launches, cyl_launches,
+                            cyl_entry_launches)
     args.report.parent.mkdir(parents=True, exist_ok=True)
     args.report.write_text(json.dumps(report, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

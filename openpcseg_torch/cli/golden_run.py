@@ -1,8 +1,8 @@
-"""Golden surrogate runs of MinkUNet and SPVCNN: the convergence gate of
-the port.
+"""Golden surrogate runs of MinkUNet, SPVCNN and Cylinder3D: the
+convergence gate of the port.
 
-Counterpart of ``tools/scripts/golden_run.py`` for the minkunet and spvcnn
-models (``--model``, the blocks of its ``model_setup``). With no dataset
+Counterpart of ``tools/scripts/golden_run.py`` for the minkunet, spvcnn and
+cylinder models (``--model``, the blocks of its ``model_setup``). With no dataset
 it trains on the ray-cast surrogate (``data/raycast.py``): 128 train scans
 (seeds 0-127) and 16 held-out val scans (seeds 10000-10015), each
 ``raycast_batch(seed, 1, cap=131072)``; batch 1, the model's widths, the
@@ -16,6 +16,8 @@ voxel dropped; the payload's ``gate`` says whether it passed.
 
     python -m openpcseg_torch.cli.golden_run --model spvcnn --seed 0 \\
         --out GOLDEN_torch_spvcnn_s0.json
+    python -m openpcseg_torch.cli.golden_run --model cylinder --seed 0 \\
+        --out GOLDEN_torch_cylinder_s0.json
     python -m openpcseg_torch.cli.golden_run --data_path <kitti sequences>
 
 With ``--data_path`` it runs the port's training CLI on a real tree
@@ -45,6 +47,7 @@ ROOT = Path(__file__).resolve().parents[2]
 CFG_FILES = {
     "minkunet": "tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10.yaml",
     "spvcnn": "tools/cfgs/fusion/semantic_kitti/spvcnn_mk34_cr10.yaml",
+    "cylinder": "tools/cfgs/voxel/semantic_kitti/cylinder_cy480_cr10.yaml",
 }
 # the ray-cast surrogate's NUM_LAYER per model (tools/scripts/golden_run.py)
 NUM_LAYER = {"minkunet": [2, 3, 4, 6, 2, 2, 2, 2], "spvcnn": [2] * 8}
@@ -75,6 +78,22 @@ def base_optim(batch: int = 1) -> dict:
 
 def model_setup(cr: float, voxel_cap: int = 98304,
                 model: str = "minkunet") -> dict:
+    if model == "cylinder":     # INIT_SIZE 32 whatever `cr`, as in JAX
+        return {
+            "MODALITY": "cylinder",
+            "DATA": {"DATASET": "semantickitti",
+                     "CYLINDER_GRID_SIZE": [480, 360, 32],
+                     "CYLINDER_SPACE_MAX": [50, 180, 2],
+                     "CYLINDER_SPACE_MIN": [0, -180, -4]},
+            "MODEL": {
+                "NAME": "Cylinder_TS", "IGNORE_LABEL": 0,
+                "IN_FEATURE_DIM": 9, "DROPOUT_P": 0.0,
+                "LABEL_SMOOTHING": 0.0, "INIT_SIZE": 32,
+                "POINT_REFINEMENT": True,
+            },
+            "OPTIM": base_optim(),
+            "TPU": {"VOXEL_CAP_PER_SCAN": voxel_cap},
+        }
     return {
         "DATA": {"DATASET": "semantickitti", "VOXEL_SIZE": 0.05},
         "MODEL": {

@@ -1,19 +1,23 @@
 """Geometry pass: build the voxel pyramid and every kernel map of a step.
 
-Counterpart of ``openpcseg_tpu/core/geometry.py build_pyramid``, voxel
-modality (the points are the level-0 voxel sites) with isotropic stride-2
-levels, as MinkUNet and SPVCNN use it. Features never enter here: the
-network that follows is gathers and matmuls over these precomputed index
-tables.
+Counterpart of ``openpcseg_tpu/core/geometry.py build_pyramid`` (flat
+tables; the per-scan variants are not ported): the voxel modality's
+pyramid, whose points are the level-0 voxel sites and whose levels are
+isotropic stride-2 with k2/s2 maps from the downsample inverse (MinkUNet,
+SPVCNN), and the point modality's, with per-axis down factors and k3
+strided / transposed maps from key lookups (Cylinder3D). Features never
+enter here: the network that follows is gathers and matmuls over these
+precomputed index tables.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
 from ..ops.coords import Keys, lookup_keys_z3, make_keys
-from ..ops.kmap import _self_z_neighbors, build_downsample, build_subm_kmap
+from ..ops.kmap import (Stride, _self_z_neighbors, build_down_kmap,
+                        build_downsample, build_subm_kmap, build_up_kmap)
 from ..ops.voxelize import (corner_offsets, devox_segments,
                             devox_transpose_table)
 from .tensor import (DevoxTable, ParityPlan, PointBuffer, SparseLevel,
@@ -136,50 +140,89 @@ def p2v_table(p2v: torch.Tensor, num_voxels: int) -> DevoxTable:
 
 def build_pyramid(coords0: torch.Tensor, valid0: torch.Tensor,
                   caps: Sequence[int], *, level0_keys: Keys,
+                  subm_kernel=3, updown_kernel: int = 2,
+                  down_factors: Optional[Sequence[Stride]] = None,
+                  point_coords: Optional[torch.Tensor] = None,
+                  point_batch: Optional[torch.Tensor] = None,
+                  point_valid: Optional[torch.Tensor] = None,
+                  point_to_voxel0: Optional[torch.Tensor] = None,
                   devox_levels: Sequence[int] = (),
                   p2v_levels: Sequence[int] = ()) -> VoxelPyramid:
-    """L-level stride-2 pyramid with subm (3^3), down and up kernel maps,
+    """L-level pyramid with subm (`subm_kernel`), down and up kernel maps,
     the devoxelize tables of `devox_levels` and the point-to-voxel tables
     of `p2v_levels`. `coords0` is the key-sorted deduplicated level-0 table
-    with keys `level0_keys` (VoxelBatch)."""
+    with keys `level0_keys` (VoxelBatch).
+
+    Level l is level l - 1 downsampled by ``down_factors[l]`` (an int or
+    (fx, fy, fz); default 2). Where ``updown_kernel`` is 2 and the factor
+    (2, 2, 2), the down and up maps come from the downsample inverse and
+    the coarse level gets its parity plan; elsewhere (Cylinder3D's k3
+    pools) they are key lookups of the kernel's offsets, ``[K, cap]``, and
+    the level has no parity plan (JAX ``build_pyramid``, :186-203).
+
+    Without `point_coords` the points are the level-0 sites (voxel
+    modality); else `point_coords` is each point's float grid cell in
+    level-0 units, `point_batch` / `point_valid` its scan and validity, and
+    `point_to_voxel0` its level-0 row (the dedup inverse map)."""
     num_levels = len(caps)
+    factors = [(f,) * 3 if isinstance(f, int) else tuple(f)
+               for f in (down_factors or [2] * num_levels)]
     levels = [SparseLevel(coords=coords0, valid=valid0, keys=level0_keys,
                           stride=(1, 1, 1))]
     counts = [valid0.sum(dtype=torch.int32)]
     inverses = [None]
     for l in range(1, num_levels):
         prev = levels[-1]
-        down = build_downsample(prev.coords, prev.valid, caps[l])
+        down = build_downsample(prev.coords, prev.valid, caps[l], factors[l])
         inverses.append(down.inverse)
         counts.append(down.num_unique)
-        levels.append(SparseLevel(coords=down.coords, valid=down.valid,
-                                  keys=down.keys,
-                                  stride=tuple(2 * s for s in prev.stride)))
+        levels.append(SparseLevel(
+            coords=down.coords, valid=down.valid, keys=down.keys,
+            stride=tuple(s * f for s, f in zip(prev.stride, factors[l]))))
+
+    def parity(l):
+        return updown_kernel == 2 and factors[l] == (2, 2, 2)
 
     for l, lvl in enumerate(levels):
-        lvl.subm_kmap = build_subm_kmap(lvl.keys, lvl.coords, lvl.valid, 3)
-        if l >= 1:
+        lvl.subm_kmap = build_subm_kmap(lvl.keys, lvl.coords, lvl.valid,
+                                        subm_kernel)
+        if l >= 1 and parity(l):
             lvl.down_kmap = _updown_from_inverse(levels[l - 1], lvl,
                                                  inverses[l], "down")
             lvl.parity_plan = build_parity_plan(lvl.down_kmap,
                                                 levels[l - 1].capacity)
-        if l + 1 < num_levels:
+        elif l >= 1:
+            lvl.down_kmap = build_down_kmap(levels[l - 1].keys, lvl.coords,
+                                            lvl.valid, updown_kernel,
+                                            factors[l])
+        if l + 1 < num_levels and parity(l + 1):
             lvl.up_kmap = _updown_from_inverse(lvl, levels[l + 1],
                                                inverses[l + 1], "up")
             lvl.up_one_hot = True
+        elif l + 1 < num_levels:
+            lvl.up_kmap = build_up_kmap(levels[l + 1].keys, lvl.coords,
+                                        lvl.valid, updown_kernel,
+                                        factors[l + 1])
 
-    # the points are the level-0 sites
     l0 = levels[0]
     dev = coords0.device
-    point_coords = l0.coords[:, 1:].float()
-    iota = torch.arange(caps[0], dtype=torch.int32, device=dev)
-    p2v0 = torch.where(l0.valid, iota, torch.full_like(iota, -1))
-    points = PointBuffer(coords=point_coords, batch=l0.coords[:, 0],
-                         valid=l0.valid)
+    if point_coords is None:
+        # the points are the level-0 sites
+        iota = torch.arange(caps[0], dtype=torch.int32, device=dev)
+        p2v0 = torch.where(l0.valid, iota, torch.full_like(iota, -1))
+        points = PointBuffer(coords=l0.coords[:, 1:].float(),
+                             batch=l0.coords[:, 0], valid=l0.valid)
+    else:
+        p2v0 = point_to_voxel0
+        points = PointBuffer(coords=point_coords, batch=point_batch,
+                             valid=point_valid)
+        if devox_levels:
+            raise NotImplementedError("devox tables of points that are not "
+                                      "the level-0 sites are not ported")
 
     # ancestor chain: level-0 row -> its voxel at level l (pure gathers)
     ancestors = [p2v0]
-    for l in range(1, num_levels):
+    for l in range(1, max([0, *devox_levels, *p2v_levels]) + 1):
         anc = ancestors[-1]
         nxt = inverses[l][anc.clamp(min=0).long()]
         ancestors.append(torch.where(anc >= 0, nxt, torch.full_like(nxt, -1)))
@@ -196,12 +239,12 @@ def build_pyramid(coords0: torch.Tensor, valid0: torch.Tensor,
         idx = torch.where(anc[None, :] >= 0, ct[:, anc.clamp(min=0).long()],
                           torch.full((8, anc.shape[0]), -1, dtype=torch.int32,
                                      device=dev)).contiguous()
-        w = _devox_weights(point_coords, l0.valid, levels[l].stride,
+        w = _devox_weights(points.coords, points.valid, levels[l].stride,
                            idx).contiguous()
         devox[l] = devox_table(idx, w, caps[l])
 
-    # JAX looks up floor(point) // stride among level l's keys; a point is
-    # a level-0 site, so that voxel is its ancestor at level l
+    # JAX looks up floor(point) // stride among level l's keys; that voxel
+    # is the ancestor at level l of the point's level-0 voxel
     p2v = {l: p2v_table(ancestors[l], caps[l]) for l in p2v_levels}
 
     return VoxelPyramid(levels=tuple(levels), points=points,

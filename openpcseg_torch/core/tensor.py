@@ -13,6 +13,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..ops.coords import Keys
+from ..ops.kmap import subm_subset_indices
 
 
 @dataclass
@@ -46,22 +47,41 @@ class SparseLevel:
     keys: Keys                            # sorted key table
     stride: Tuple[int, int, int]          # tensor stride relative to level 0
     subm_kmap: Optional[torch.Tensor] = None  # [27, cap] into this level
-    down_kmap: Optional[torch.Tensor] = None  # [8, cap] into the finer level
-    up_kmap: Optional[torch.Tensor] = None    # [8, cap] into the coarser level
+    # [K, cap] into the finer level: K 8 for the k2/s2 maps, 27 for k3
+    down_kmap: Optional[torch.Tensor] = None
+    up_kmap: Optional[torch.Tensor] = None    # [K, cap] into the coarser level
     up_one_hot: bool = False              # up_kmap fires one offset per row
-    # down_kmap's pairs grouped by parity: the up conv into the finer level
-    # and the backward of the down conv into this one
+    # k2/s2 only (None otherwise): down_kmap's pairs grouped by parity, for
+    # the up conv into the finer level and the backward of the down conv
+    # into this one
     parity_plan: Optional[ParityPlan] = None
+    # anisotropic kernel size -> its rows of subm_kmap (subm_subset)
+    subsets: Dict[tuple, torch.Tensor] = field(default_factory=dict,
+                                               repr=False)
 
     @property
     def capacity(self) -> int:
         return self.coords.shape[0]
 
+    def subm_subset(self, kernel_size) -> torch.Tensor:
+        """[K, cap]: the rows of the 3^3 ``subm_kmap`` of a centred odd
+        sub-kernel, in its ``kernel_offsets`` order (Cylinder3D's
+        anisotropic convs); made once per level and kernel, then shared by
+        every conv of that kernel."""
+        key = tuple(kernel_size)
+        if key == (3, 3, 3):
+            return self.subm_kmap
+        if key not in self.subsets:
+            rows = torch.as_tensor(subm_subset_indices(3, key),
+                                   device=self.subm_kmap.device).long()
+            self.subsets[key] = self.subm_kmap[rows].contiguous()
+        return self.subsets[key]
+
 
 @dataclass
 class PointBuffer:
     """The model-facing points; in the voxel modality these are the
-    deduplicated level-0 sites."""
+    deduplicated level-0 sites, for Cylinder3D the scans' points."""
 
     coords: torch.Tensor  # [n, 3] float32 level-0 grid units
     batch: torch.Tensor   # [n] int32 (-1 padding)
@@ -104,9 +124,9 @@ class VoxelPyramid:
     """All level geometry and kernel maps for one network forward.
 
     ``p2v[l]`` is the point-to-voxel table of level l that SPVCNN's
-    mean-voxelize walks: a one-corner DevoxTable (core.geometry.p2v_table)
-    whose ``idx`` [1, n] is JAX's ``p2v[l]``, each point's level-l voxel
-    (-1 none)."""
+    mean-voxelize and Cylinder3D's refinement gather walk: a one-corner
+    DevoxTable (core.geometry.p2v_table) whose ``idx`` [1, n] is JAX's
+    ``p2v[l]``, each point's level-l voxel (-1 none)."""
 
     levels: Tuple[SparseLevel, ...]
     points: PointBuffer

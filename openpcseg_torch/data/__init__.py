@@ -2,7 +2,9 @@
 
 Counterpart of ``openpcseg_tpu/data/__init__.py``: ``build_dataloader``
 maps (modality, dataset) to a view and wraps it in a ``BatchLoader``. The
-port has the voxel and fusion views of SemanticKITTI and ScribbleKITTI;
+port has the voxel, fusion and cylinder views of SemanticKITTI and
+ScribbleKITTI (the cylinder view is the voxel view: Cylinder3D partitions
+the points on the device, ``core.batch.cylinder_points_batch``);
 every other view of the JAX package raises ``NotImplementedError`` naming
 the ROADMAP item that ports it. ``raycast`` and ``raycast_kitti`` make surrogate scans
 and trees without a dataset.
@@ -17,11 +19,12 @@ _VIEWS = {
     ("voxel", "scribblekitti"): SemkittiVoxelDataset,
     ("fusion", "semantickitti"): SemkittiFusionDataset,
     ("fusion", "scribblekitti"): SemkittiFusionDataset,
+    ("cylinder", "semantickitti"): SemkittiVoxelDataset,
+    ("cylinder", "scribblekitti"): SemkittiVoxelDataset,
 }
 # the JAX package's other views, and the ROADMAP.md Queue 1 item that
 # ports each
 _NOT_PORTED = {
-    ("cylinder", "semantickitti"): 12, ("cylinder", "scribblekitti"): 12,
     ("range", "semantickitti"): 14, ("range", "scribblekitti"): 14,
     ("voxel", "waymo"): 15, ("cylinder", "waymo"): 15,
     ("fusion", "waymo"): 15, ("voxel", "nuscenes"): 15,

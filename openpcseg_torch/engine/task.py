@@ -1,13 +1,15 @@
-"""SegTask: the train / eval core for one (config, model) pair, voxel and
-fusion modalities of the voxel-input segmentors (MinkUNet, SPVCNN).
+"""SegTask: the train / eval core for one (config, model) pair: the voxel
+and fusion modalities of the voxel-input segmentors (MinkUNet, SPVCNN) and
+the cylinder modality of the point-input Cylinder3D.
 
 Counterpart of ``openpcseg_tpu/engine/task.py`` (``default_caps``,
 ``preprocess``, ``train_step``, ``eval_step``, ``predict_step``), all on
 `device`:
 
-- one train step = voxelize + geometry pass + the model's forward with
-  batch-statistics BN + the configured losses (CE with label smoothing +
-  Lovász-softmax) + backward through the kernels' backward passes +
+- one train step = voxelize (or the cylindrical partition) + geometry
+  pass + the model's forward with batch-statistics BN + the configured
+  losses (CE with label smoothing + Lovász-softmax; plus Cylinder3D's
+  point-refinement CE) + backward through the kernels' backward passes +
   gradient clipping + the optimizer update at the scheduled lr;
 - one eval step = the same forward with running-statistics BN + argmax
   re-projected to every point through the inverse map + confusion matrix.
@@ -19,20 +21,21 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from ..core.batch import voxelize_points_batch
+from ..core.batch import cylinder_points_batch, voxelize_points_batch
 from ..core.geometry import build_pyramid
 from ..losses import Losses
+from ..losses.ce import cross_entropy
 from ..models import build_segmentor
 from ..ops.coords import Keys
 from ..optim import build_optimizer
 from ..utils.metrics import confusion_matrix
 
 
-# the JAX package's other modalities and the ROADMAP.md Queue 1 item that
-# ports each; "fusion" runs here for the models whose input is the voxel
+# the JAX package's other modality and the ROADMAP.md Queue 1 item that
+# ports it; "fusion" runs here for the models whose input is the voxel
 # features (SPVCNN; RPVNet, whose input also takes the range image, is
 # item 13 and not in the registry)
-_NOT_PORTED = {"cylinder": 12, "range": 14}
+_NOT_PORTED = {"range": 14}
 
 
 def default_caps(voxel_cap0: int, num_levels: int,
@@ -88,15 +91,24 @@ class SegTask:
             raise NotImplementedError(
                 f"the {modality} modality is not ported yet (ROADMAP.md "
                 f"Queue 1 item {_NOT_PORTED[modality]})")
-        self.voxel_size = float(cfgs["DATA"]["VOXEL_SIZE"])
+        self.modality = modality
+        data = cfgs["DATA"]
+        if modality == "cylinder":
+            self.cylinder = dict(
+                space_min=tuple(data["CYLINDER_SPACE_MIN"]),
+                space_max=tuple(data["CYLINDER_SPACE_MAX"]),
+                grid_size=tuple(data["CYLINDER_GRID_SIZE"]))
+        else:
+            self.voxel_size = float(data["VOXEL_SIZE"])
         model_cfg = cfgs["MODEL"]
         self.model = build_segmentor(model_cfg, num_class,
                                      compute_dtype=compute_dtype)
         self.model.reset_parameters(torch.Generator().manual_seed(seed))
         self.model.to(self.device).eval()
         spec = type(self.model).geometry_spec()
-        self.devox_levels = spec["devox_levels"]
-        self.p2v_levels = spec.get("p2v_levels", ())
+        self.geometry = {k: v for k, v in spec.items() if k != "num_levels"}
+        self.point_input = getattr(type(self.model), "INPUT_MODE",
+                                   "voxel") == "point"
         tpu_cfg = cfgs.get("TPU", {})
         cap0 = voxel_cap_per_scan or tpu_cfg.get("VOXEL_CAP_PER_SCAN", 98304)
         self.caps = default_caps(cap0 * batch_per_device, spec["num_levels"],
@@ -124,15 +136,35 @@ class SegTask:
                 total_epochs)
 
     def preprocess(self, batch: Dict[str, torch.Tensor]):
-        """Voxelize + geometry pass -> (VoxelBatch, VoxelPyramid)."""
-        vb = voxelize_points_batch(
-            batch["xyz"], batch["feats"], batch["labels"], batch["valid"],
-            voxel_size=self.voxel_size, voxel_cap=self.caps[0])
+        """Voxelize (or partition the cylinder) + geometry pass ->
+        (VoxelBatch, VoxelPyramid)."""
+        if self.modality == "cylinder":
+            vb = cylinder_points_batch(
+                batch["xyz"], batch["feats"][..., 3:], batch["labels"],
+                batch["valid"], voxel_cap=self.caps[0],
+                num_class=self.num_class, **self.cylinder)
+            points = dict(point_coords=vb.point_grid,
+                          point_batch=vb.point_batch.clamp(min=0),
+                          point_valid=vb.point_valid,
+                          point_to_voxel0=vb.inverse_map)
+        else:
+            vb = voxelize_points_batch(
+                batch["xyz"], batch["feats"], batch["labels"],
+                batch["valid"], voxel_size=self.voxel_size,
+                voxel_cap=self.caps[0])
+            points = {}
         pyr = build_pyramid(
             vb.voxel_coords, vb.voxel_valid, self.caps,
             level0_keys=Keys(vb.voxel_keys_hi, vb.voxel_keys_lo),
-            devox_levels=self.devox_levels, p2v_levels=self.p2v_levels)
+            **self.geometry, **points)
         return vb, pyr
+
+    def _run_model(self, vb, pyr, **kw):
+        """The model's outputs on its input (the points' features for a
+        point-input model, else the voxels'): (voxel logits, aux dict)."""
+        x = vb.point_feats if self.point_input else vb.voxel_feats
+        out = self.model(x, pyr, **kw)
+        return out if isinstance(out, tuple) else (out, {})
 
     def voxel_overflow(self, vb, pyr) -> torch.Tensor:
         """Voxels dropped over ALL pyramid levels; level 0 counts against
@@ -150,8 +182,15 @@ class SegTask:
         self.model.train()
         vb, pyr = self.preprocess(batch)
         self.optimizer.zero_grad(set_to_none=True)
-        logits = self.model(vb.voxel_feats, pyr, generator=self.generator)
+        logits, aux = self._run_model(vb, pyr, generator=self.generator)
         loss = self.losses(logits, vb.voxel_labels, vb.voxel_valid)
+        if "point_refine_logits" in aux:
+            # Cylinder3D's auxiliary point-refinement CE (JAX
+            # _loss_from_outputs)
+            loss = loss + cross_entropy(
+                aux["point_refine_logits"], vb.point_labels, vb.point_valid,
+                ignore_index=self.losses.ignore_index,
+                label_smoothing=self.losses.label_smoothing)
         loss.backward()
         params = [p for p in self.model.parameters() if p.grad is not None]
         clip = self.optim_cfg.get("GRAD_NORM_CLIP", None)
@@ -173,7 +212,7 @@ class SegTask:
         VoxelPyramid, voxel logits [V, num_class] f32)."""
         self.model.eval()
         vb, pyr = self.preprocess(batch)
-        return vb, pyr, self.model(vb.voxel_feats, pyr)
+        return vb, pyr, self._run_model(vb, pyr)[0]
 
     def _point_pred(self, vb, logits) -> torch.Tensor:
         voxel_pred = logits.argmax(dim=-1).to(torch.int32)

@@ -36,9 +36,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # forward kernels (K1, K3, K4, K7), then the backward ones: the dfeats
 # passes of K2 / K6 / K5, the shared weight-gradient kernel, and K8; then
-# SPVCNN's mean-voxelize, K8 over a one-corner table, and its backward, K7
+# K8 and K7 over a one-corner point-to-voxel table: "vmean" is K8 (SPVCNN's
+# mean-voxelize sum; the backward of Cylinder3D's refinement gather),
+# "vmean_bwd" K7 (the mean-voxelize's backward; the refinement gather);
+# then Cylinder3D's k3 strided convs on the gather-GEMM: forward, dfeats
+# and dW (gather_dw.cu)
 COUNTERS = ("subm", "down", "up", "devox", "subm_bwd", "down_bwd", "up_bwd",
-            "dw", "devox_bwd", "vmean", "vmean_bwd")
+            "dw", "devox_bwd", "vmean", "vmean_bwd", "strided",
+            "strided_bwd", "strided_dw")
 LAUNCHES = dict.fromkeys(COUNTERS, 0)
 PLAIN_ON_CUDA = dict.fromkeys(COUNTERS, 0)
 

@@ -28,7 +28,11 @@ kernel) reuses both kernels over its level's one-corner table
 order, so it repeats bit for bit where ``index_add_`` would not;
 ``point_gather``, its transpose, is K7. ``VoxelizeMeanFn`` divides by the
 count around them. Their launches count apart, as ``vmean`` and
-``vmean_bwd``.
+``vmean_bwd``. Cylinder3D's point-refinement head gathers each point's
+level-0 voxel row (JAX: an XLA gather, whose gradient is a scatter-add):
+``PointGatherFn`` is ``point_gather`` (K7) with ``voxel_sum`` (K8) as its
+backward, over the level-0 p2v table, so that gradient repeats bit for bit
+too.
 """
 from __future__ import annotations
 
@@ -195,3 +199,17 @@ class VoxelizeMeanFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         return point_gather(dy / ctx.denom, ctx.table), None
+
+
+class PointGatherFn(torch.autograd.Function):
+    """out[p] = voxel_feats[p's voxel] (0 without one) over a one-corner
+    table; its backward sums each voxel's point gradients (``voxel_sum``)."""
+
+    @staticmethod
+    def forward(ctx, voxel_feats, table):
+        ctx.table = table
+        return point_gather(voxel_feats, table)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return voxel_sum(dout, ctx.table), None

@@ -1,12 +1,13 @@
 """Masked segment reductions over fixed-capacity padded buffers.
 
-Counterpart of ``openpcseg_tpu/ops/segment.py`` (the parts the voxel path
-and SPVCNN's mean-voxelize use). ``ids`` is int32 with -1 meaning
+Counterpart of ``openpcseg_tpu/ops/segment.py`` (the parts the voxel path,
+SPVCNN's mean-voxelize and Cylinder3D's scatter-max voxelize use). ``ids`` is int32 with -1 meaning
 "dropped": such rows go to an overflow slot ``num_segments`` that is cut
 off at the end. These are plain PyTorch: ``index_add_`` of floats is an
 atomic add on a CUDA tensor, so the order of its sums, and their bits, vary
 from run to run there; the card's mean-voxelize runs ``ops.devox
-voxel_sum`` instead.
+voxel_sum`` instead. ``segment_max`` is exact in any order (a max, and
+its backward's tie counts are integer sums), so it stays plain on the card.
 """
 from __future__ import annotations
 
@@ -39,6 +40,19 @@ def segment_mean(data: torch.Tensor, ids: torch.Tensor, num_segments: int):
     cnt = segment_count(ids, num_segments)
     denom = cnt.clamp(min=1).to(data.dtype)
     return s / denom.reshape((-1,) + (1,) * (data.dim() - 1)), cnt
+
+
+def segment_max(data: torch.Tensor, ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """Max-scatter of rows of `data` [N, C] into `num_segments` buckets;
+    empty segments give 0 and -1 ids are dropped (JAX ``segment_max``).
+    Differentiable: the gradient of a maximum tied by several rows is split
+    evenly over them, as ``jax.ops.segment_max``'s is."""
+    route = _route(ids, num_segments)[:, None].expand_as(data)
+    out = data.new_zeros((num_segments + 1,) + tuple(data.shape[1:]))
+    out = out.scatter_reduce(0, route, data, reduce="amax",
+                             include_self=False)
+    return out[:num_segments]
 
 
 def segment_min_index(ids: torch.Tensor, num_segments: int) -> torch.Tensor:

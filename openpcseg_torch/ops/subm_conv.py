@@ -112,14 +112,15 @@ def dw_chunks(n: int, num_k: int, ca: int, cb: int):
 
 
 def gather_dw(a: torch.Tensor, ia: Optional[torch.Tensor], b: torch.Tensor,
-              ib: Optional[torch.Tensor]) -> torch.Tensor:
+              ib: Optional[torch.Tensor], counter: str = "dw") -> torch.Tensor:
     """dW[k] = sum_n a[ia[k,n]]^T b[ib[k,n]] -> float32 [K, Ca, Cb].
 
     ia / ib are [K, n] int32 maps (-1 drops the pair) or None for the
     identity (then that side has n rows). bf16 a and b. CPU tensors take
-    the plain version; CUDA tensors launch csrc/gather_dw.cu or raise."""
+    the plain version; CUDA tensors launch csrc/gather_dw.cu, counted under
+    `counter`, or raise."""
     if not a.is_cuda:
-        return gather_dw_plain(a, ia, b, ib)
+        return gather_dw_plain(a, ia, b, ib, counter)
     dev = a.device
     idx = ia if ia is not None else ib
     if idx is None:
@@ -141,7 +142,7 @@ def gather_dw(a: torch.Tensor, ia: Optional[torch.Tensor], b: torch.Tensor,
     partial = (torch.empty((n_chunks, num_k, ca, cb), dtype=torch.float32,
                            device=dev) if n_chunks > 1 else None)
     cuda_lib.launch(
-        "opcs_gather_dw_bf16", "dw", a.data_ptr(),
+        "opcs_gather_dw_bf16", counter, a.data_ptr(),
         None if ia is None else ia.data_ptr(), b.data_ptr(),
         None if ib is None else ib.data_ptr(),
         None if partial is None else partial.data_ptr(), out.data_ptr(), n,
@@ -149,8 +150,8 @@ def gather_dw(a: torch.Tensor, ia: Optional[torch.Tensor], b: torch.Tensor,
     return out
 
 
-def gather_dw_plain(a, ia, b, ib):
-    cuda_lib.note_plain("dw", a)
+def gather_dw_plain(a, ia, b, ib, counter="dw"):
+    cuda_lib.note_plain(counter, a)
     idx = ia if ia is not None else ib
     acc = _acc(a.dtype)
 
@@ -162,8 +163,9 @@ def gather_dw_plain(a, ia, b, ib):
 
 def subm_conv(feats: torch.Tensor, weights: torch.Tensor,
               kmap: torch.Tensor) -> torch.Tensor:
-    """Submanifold conv over kmap [27, N] (centre row = identity, -1 on
-    padding rows): float32 [N, Cout]. Padding rows of `feats` must be zero,
+    """Submanifold conv over kmap [K, N] of a centred odd box (the 3^3 map,
+    or an anisotropic kernel's rows of it, ``ops.kmap.subm_subset_indices``;
+    centre row K // 2 = identity, -1 on padding rows): float32 [N, Cout]. Padding rows of `feats` must be zero,
     as everywhere in the package: the plain version multiplies the centre
     offset without a gather. CPU tensors take the plain version; CUDA
     tensors launch K1 or raise."""
@@ -181,8 +183,10 @@ def subm_conv_plain(feats, weights, kmap):
 def subm_conv_bwd(dout: torch.Tensor, feats: torch.Tensor,
                   weights: torch.Tensor, kmap: torch.Tensor,
                   need_dfeats: bool = True):
-    """K2: (dfeats [N, Cin] or None, dW [27, Cin, Cout]), both float32,
-    for the upstream gradient dout [N, Cout] of ``subm_conv``. CPU tensors
+    """K2: (dfeats [N, Cin] or None, dW [K, Cin, Cout]), both float32,
+    for the upstream gradient dout [N, Cout] of ``subm_conv``. The map read
+    reversed is the transposed map because a centred odd box's offsets
+    reversed are their negations. CPU tensors
     take the plain version; CUDA tensors launch the kernels or raise."""
     if not dout.is_cuda:
         return subm_conv_bwd_plain(dout, feats, weights, kmap, need_dfeats)

@@ -1,4 +1,5 @@
-"""k2/s2 strided (down) and transposed (up) convs: wrappers of K3-K6.
+"""Strided (down) and transposed (up) convs: wrappers of K3-K6, and the
+k3 strided convs of Cylinder3D on the same kernels.
 
 Counterpart of ``openpcseg_tpu/ops/pallas_updown.py``:
 
@@ -24,6 +25,17 @@ Counterpart of ``openpcseg_tpu/ops/pallas_updown.py``:
 
 The TPU kernels fuse dfeats and dW over one gathered tile; here each
 backward is two launches (fusing them is later speed work, ROADMAP.md).
+
+Cylinder3D's strided convs (a 3^3 kernel, stride (2, 2, 2) or (2, 2, 1),
+down over the coarse level's ``build_down_kmap`` [27, N_coarse] and up over
+the fine level's ``build_up_kmap`` [27, N_fine]) run on XLA in JAX
+(``sparse_conv`` with ``center=None``: no Pallas kernel). Here
+``StridedConvFn`` puts both directions on the gather-GEMM: the forward
+over the map, dfeats over the transposed map ``kmap_t`` (the other level's
+map of the pair) with ``W^T``, and dW by ``gather_dw`` over whichever of
+the two maps has fewer columns (the same pairs). Their launches count as
+``strided``, ``strided_bwd`` and ``strided_dw``; plain versions
+``ops.sparse_conv._conv_apply`` and ``_core_bwd`` without a centre.
 """
 from __future__ import annotations
 
@@ -163,3 +175,57 @@ class UpConvFn(torch.autograd.Function):
         feats, weights, up_kmap, down_kmap = ctx.saved_tensors
         dfeats, dw = up_conv_bwd(dout, feats, weights, up_kmap, down_kmap)
         return dfeats.to(feats.dtype), dw.to(weights.dtype), None, None, None
+
+
+def strided_conv(feats: torch.Tensor, weights: torch.Tensor,
+                 kmap: torch.Tensor) -> torch.Tensor:
+    """Strided or transposed conv over a map [K, N_out] of any kernel
+    (Cylinder3D's k3): float32 [N_out, Cout]. CPU: plain version; CUDA:
+    the gather-GEMM or raise."""
+    if not feats.is_cuda:
+        return strided_conv_plain(feats, weights, kmap)
+    return gather_gemm(feats, weights, kmap, "strided")
+
+
+def strided_conv_plain(feats, weights, kmap):
+    cuda_lib.note_plain("strided", feats)
+    return _conv_apply(feats, weights, kmap, None, feats.dtype)
+
+
+def strided_conv_bwd(dout: torch.Tensor, feats: torch.Tensor,
+                     weights: torch.Tensor, kmap: torch.Tensor,
+                     kmap_t: torch.Tensor):
+    """(dfeats [N_in, Cin], dW [K, Cin, Cout]), both float32, for the
+    upstream gradient dout [N_out, Cout] of ``strided_conv`` over `kmap`;
+    `kmap_t` [K, N_in] is its transpose. CPU: plain version; CUDA: the
+    kernels or raise."""
+    if not dout.is_cuda:
+        return strided_conv_bwd_plain(dout, feats, weights, kmap, kmap_t)
+    d16 = dout.to(torch.bfloat16).contiguous()
+    dfeats = gather_gemm(d16, weights.transpose(1, 2), kmap_t, "strided_bwd")
+    if kmap.shape[1] <= kmap_t.shape[1]:
+        dw = gather_dw(feats, kmap, d16, None, counter="strided_dw")
+    else:
+        dw = gather_dw(feats, None, d16, kmap_t, counter="strided_dw")
+    return dfeats, dw
+
+
+def strided_conv_bwd_plain(dout, feats, weights, kmap, kmap_t):
+    cuda_lib.note_plain("strided_bwd", dout)
+    return _core_bwd(feats, weights, kmap_t, dout, None, feats.dtype)
+
+
+class StridedConvFn(torch.autograd.Function):
+    """out = strided_conv(feats, W, kmap) with its backward over the
+    transposed map kmap_t. Returns float32."""
+
+    @staticmethod
+    def forward(ctx, feats, weights, kmap, kmap_t):
+        ctx.save_for_backward(feats, weights, kmap, kmap_t)
+        return strided_conv(feats, weights, kmap)
+
+    @staticmethod
+    def backward(ctx, dout):
+        feats, weights, kmap, kmap_t = ctx.saved_tensors
+        dfeats, dw = strided_conv_bwd(dout, feats, weights, kmap, kmap_t)
+        return dfeats.to(feats.dtype), dw.to(weights.dtype), None, None

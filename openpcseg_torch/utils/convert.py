@@ -1,16 +1,20 @@
-"""Load JAX (flax) MinkUNet and SPVCNN variables into the port's models.
+"""Load JAX (flax) MinkUNet, SPVCNN and Cylinder_TS variables into the
+port's models.
 
 ``jax_params_to_torch(params, batch_stats, model)`` takes the numpy pytrees
 (nested dicts) of ``TrainState.params`` / ``.batch_stats`` and fills every
-parameter and buffer of an ``openpcseg_torch.models.MinkUNet`` or
-``SPVCNN``:
+parameter and buffer of an ``openpcseg_torch.models.MinkUNet``, ``SPVCNN``
+or ``Cylinder_TS``:
 
 - a conv ``kernel`` [K*Cin, Cout] becomes the weight [K, Cin, Cout] in
   ``kernel_offsets`` order (layers.py:104-105); 1x1 kernels stay [Cin, Cout];
 - flax auto-names modules per class in creation order (BasicConvBlock_i,
   ResidualBlock_i, SparseConv_i, MaskedBatchNorm_i, StackedBlocks_i and
-  SPVCNN's PointTransform_i), which the walks below reproduce; a Dense
-  ``kernel`` [Cin, Cout] is the Linear weight transposed;
+  SPVCNN's PointTransform_i; Cylinder3D's Dense_i, ResContextBlock_0,
+  CylResBlock_i, CylUpBlock_i, ReconBlock_0 and their ConvActBN_j /
+  AsymSubmConv_j), which the walks below reproduce; a Dense ``kernel``
+  [Cin, Cout] is the Linear weight transposed, a conv ``bias`` the
+  SparseConv's;
 - blocks 2..n of a stage with n >= 3 live in ``StackedBlocks_j`` with every
   leaf stacked on axis 0 (layers.py:347-356) and are unstacked here.
 
@@ -74,6 +78,8 @@ class _Loader:
     def conv(self, conv, path: Path, stack=None) -> None:
         w = self.take("params", path + ("kernel",), stack)
         self.put(conv.weight, w.reshape(conv.weight.shape))
+        if conv.bias is not None:
+            self.put(conv.bias, self.take("params", path + ("bias",), stack))
 
     def bn(self, bn, path: Path, stack=None) -> None:
         self.put(bn.weight, self.take("params", path + ("scale",), stack))
@@ -132,14 +138,67 @@ class _Loader:
         self.blocks(model.up_blocks[i], scan_blocks)
 
 
+    def conv_act_bn(self, blk, path: Path) -> None:
+        self.conv(blk.conv.conv, path + ("AsymSubmConv_0", "SparseConv_0"))
+        self.bn(blk.bn, path + ("MaskedBatchNorm_0",))
+
+    def cylinder(self, model) -> None:
+        """Cylinder_TS.__call__'s creation order: the point MLP (its BN on
+        the raw features first), the 16-wide compression, the UNet blocks,
+        the head, the refinement head."""
+        self.bn(model.point_bns[0], (self.next("MaskedBatchNorm"),))
+        for lin, bn in zip(model.point_linears[:3], model.point_bns[1:]):
+            self.dense(lin, (self.next("Dense"),))
+            self.bn(bn, (self.next("MaskedBatchNorm"),))
+        self.dense(model.point_linears[3], (self.next("Dense"),))
+        self.dense(model.compress, (self.next("Dense"),))
+        path = (self.next("ResContextBlock"),)
+        for j, blk in enumerate(model.context.convs):
+            self.conv_act_bn(blk, path + (f"ConvActBN_{j}",))
+        for down in model.downs:
+            path = (self.next("CylResBlock"),)
+            for j, blk in enumerate(down.convs):
+                self.conv_act_bn(blk, path + (f"ConvActBN_{j}",))
+            self.conv(down.pool, path + ("SparseConv_0",))
+        for up in model.ups:
+            path = (self.next("CylUpBlock"),)
+            self.conv_act_bn(up.pre, path + ("ConvActBN_0",))
+            self.conv(up.up, path + ("SparseConv_0",))
+            for j, blk in enumerate(up.post, start=1):
+                self.conv_act_bn(blk, path + (f"ConvActBN_{j}",))
+        path = (self.next("ReconBlock"),)
+        for j, (conv, bn) in enumerate(zip(model.recon.convs,
+                                           model.recon.bns)):
+            self.conv(conv.conv, path + (f"AsymSubmConv_{j}", "SparseConv_0"))
+            self.bn(bn, path + (f"MaskedBatchNorm_{j}",))
+        self.conv(model.head, (self.next("SparseConv"),))
+        if model.point_refinement:
+            self.dense(model.refine, (self.next("Dense"),))
+            self.bn(model.refine_bn, (self.next("MaskedBatchNorm"),))
+            self.dense(model.point_head, (self.next("Dense"),))
+
+
+def _check(ld) -> None:
+    unused = sorted("/".join(k) for k in set(ld.src) - ld.used)
+    if unused:
+        raise ValueError(f"flax variables left unused: {unused}")
+    unfilled = sorted(n for i, n in ld.names.items() if i not in ld.filled)
+    if unfilled:
+        raise ValueError(f"torch tensors left unfilled: {unfilled}")
+
+
 def jax_params_to_torch(params, batch_stats, model,
                         scan_blocks: bool = True):
-    """Fill `model` (openpcseg_torch MinkUNet or SPVCNN) from flax
-    variables; returns the model. scan_blocks=False matches
+    """Fill `model` (openpcseg_torch MinkUNet, SPVCNN or Cylinder_TS) from
+    flax variables; returns the model. scan_blocks=False matches
     OPENPCSEG_SCAN_BLOCKS=0 trees. The walk is flax's creation order: for
     SPVCNN the point MLPs come after the down stages and after up stages
     1 and 3."""
     ld = _Loader(params, batch_stats, model)
+    if type(model).__name__ == "Cylinder_TS":
+        ld.cylinder(model)
+        _check(ld)
+        return model
     pts = list(getattr(model, "point_transforms", ()))
     for blk in model.stem:
         ld.basic(blk, (ld.next("BasicConvBlock"),))
@@ -153,11 +212,5 @@ def jax_params_to_torch(params, batch_stats, model,
     if pts:
         ld.point_transform(pts[2])
     ld.dense(model.classifier, ("classifier",))
-
-    unused = sorted("/".join(k) for k in set(ld.src) - ld.used)
-    if unused:
-        raise ValueError(f"flax variables left unused: {unused}")
-    unfilled = sorted(n for i, n in ld.names.items() if i not in ld.filled)
-    if unfilled:
-        raise ValueError(f"torch tensors left unfilled: {unfilled}")
+    _check(ld)
     return model

@@ -39,7 +39,7 @@ SLICE_MODULES = [
     "openpcseg_torch.engine.trainer", "openpcseg_torch.cli",
     "openpcseg_torch.cli.train", "openpcseg_torch.cli.infer",
     "openpcseg_torch.cli.golden_run", "openpcseg_torch.models.spvcnn",
-    "openpcseg_torch.data.fusion_view",
+    "openpcseg_torch.data.fusion_view", "openpcseg_torch.models.cylinder3d",
 ]
 
 
@@ -78,6 +78,33 @@ def test_chip_smoke_spvcnn_is_the_mk34_cr10_config():
     assert (chip_smoke.SPV_CFGS["TPU"]["VOXEL_CAP_PER_SCAN"]
             == cfg["TPU"]["VOXEL_CAP_PER_SCAN"])
     assert chip_smoke.N_POINTS == cfg["TPU"]["POINT_CAP_PER_SCAN"]
+
+
+def test_chip_smoke_cylinder_is_the_cy480_cr10_config():
+    import chip_smoke
+    cfg = yaml.safe_load((ROOT / chip_smoke.CYL_ENTRY_CFG).read_text())
+    assert chip_smoke.CYL_MODEL_CFG == cfg["MODEL"]
+    assert chip_smoke.CYL_TRAIN_CFGS["OPTIM"] == cfg["OPTIM"]
+    assert chip_smoke.CYL_CFGS["MODALITY"] == cfg["MODALITY"] == "cylinder"
+    data = {k: v for k, v in cfg["DATA"].items() if k.startswith("CYL")}
+    assert chip_smoke.CYL_CFGS["DATA"] == dict(data, DATASET="semantickitti")
+    tpu = {k: v for k, v in cfg["TPU"].items() if k != "COMPUTE_DTYPE"}
+    assert chip_smoke.CYL_CFGS["TPU"] == tpu
+    assert chip_smoke.N_POINTS == cfg["TPU"]["POINT_CAP_PER_SCAN"]
+
+
+def test_cylinder_segtask_targets_the_card_by_default():
+    """The Cylinder3D yaml's SegTask asks for the card too, and reads the
+    cylinder keys of DATA (it has no VOXEL_SIZE)."""
+    import chip_smoke
+    if torch.cuda.is_available():
+        assert SegTask(chip_smoke.CYL_CFGS, 20).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            SegTask(chip_smoke.CYL_CFGS, 20)
+    task = SegTask(chip_smoke.CYL_CFGS, 20, device="cpu")
+    assert task.cylinder["grid_size"] == (480, 360, 32)
+    assert task.caps == [98304, 54144, 29568, 19712, 14848]
 
 
 def test_fusion_view_is_a_copy_of_the_jax_module():
@@ -132,6 +159,11 @@ def _calls(rng):
     p2v = p2v_table(torch.full((16,), -1, dtype=torch.int32), 16)
     z = _flag(torch.zeros(16, 8))
     return {
+        "strided": lambda: updown.strided_conv(f, w27, km27),
+        "strided_bwd": lambda: updown.strided_conv_bwd(d, f, w27, km27,
+                                                       km27),
+        "strided_dw": lambda: subm_conv.gather_dw(f, km27, f, None,
+                                                  counter="strided_dw"),
         "subm": lambda: subm_conv.subm_conv(f, w27, km27),
         "down": lambda: updown.down_conv(f, w8, km8),
         "up": lambda: updown.up_conv(f, w8, km8, plan),
@@ -159,7 +191,8 @@ def no_library(monkeypatch, tmp_path):
 
 
 WRAPPERS = ["subm", "down", "up", "devox", "subm_bwd", "down_bwd", "up_bwd",
-            "dw", "devox_bwd", "vmean", "vmean_bwd"]
+            "dw", "devox_bwd", "vmean", "vmean_bwd", "strided", "strided_bwd",
+            "strided_dw"]
 
 
 @pytest.mark.parametrize("name", WRAPPERS)

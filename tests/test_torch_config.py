@@ -134,3 +134,25 @@ def test_log_config_matches_jax():
     jax_config.log_config_to_file(jax_config.cfg_from_yaml_file(
         CFG_FILES[0]), logger=Sink(want))
     assert got == want and len(got) > 10
+
+
+def test_cylinder_yaml_builds_the_task_jax_builds():
+    """The Cylinder3D yaml through the port's reader: its SegTask reads
+    the cylinder keys (the yaml has no VOXEL_SIZE) and gets JAX's grid,
+    caps and geometry schedule."""
+    from openpcseg_tpu.engine import SegTask as JaxSegTask
+    from openpcseg_torch.engine.task import SegTask
+
+    path = ROOT / "tools/cfgs/voxel/semantic_kitti/cylinder_cy480_cr10.yaml"
+    cfgs = cfg_from_yaml_file(path)
+    assert "VOXEL_SIZE" not in cfgs.DATA
+    task = SegTask(cfgs, 20, device="cpu", batch_per_device=2)
+    want = JaxSegTask(jax_config.cfg_from_yaml_file(path), num_class=20,
+                      batch_per_device=2)
+    assert task.caps == want.caps
+    assert (task.cylinder["space_min"], task.cylinder["space_max"],
+            task.cylinder["grid_size"]) == (
+        want.cyl_space_min, want.cyl_space_max, want.cyl_grid)
+    spec = dict(want.geom_spec)
+    assert task.geometry == {k: spec[k] for k in task.geometry}
+    assert task.point_input and type(task.model).__name__ == "Cylinder_TS"

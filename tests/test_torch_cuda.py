@@ -406,3 +406,110 @@ def test_voxelize_mean_kernels(dtype, level, c):
     want = zg.detach().requires_grad_()
     segment_mean(want, t.idx[0], t.num_voxels)[0].backward(dy.float())
     _close(zg.grad, want.grad)
+
+
+# Cylinder3D's shapes: its anisotropic submanifold convs (K 9 and 3, and
+# the 3^3) and k3 strided convs (K 27, stride (2,2,2) or (2,2,1), down and
+# up) on the gather-GEMM and gather_dw, the 20-class head, the
+# scatter-max and the refinement gather, on the pyramid of the
+# cy480 grid over the 8192-point scan
+CYL_SUBM = [((1, 3, 3), 0, 32, 32), ((3, 1, 1), 0, 64, 64),
+            ((1, 3, 3), 3, 256, 256), ((3, 1, 3), 3, 256, 256),
+            ((3, 3, 3), 4, 512, 512), ((3, 3, 3), 0, 128, 20),
+            ((1, 3, 3), 0, 16, 32)]
+CYL_STRIDED = [(1, 64), (2, 128), (4, 512)]   # coarse level, C
+
+
+@pytest.fixture(scope="module")
+def cyl_pyr():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import chip_smoke
+    task = SegTask(chip_smoke.CYL_CFGS, 20, device="cuda",
+                   compute_dtype=torch.bfloat16, voxel_cap_per_scan=8192)
+    return task.preprocess(batch_to_device(raycast_batch(0, 1, cap=8192),
+                                           "cuda"))
+
+
+@pytest.mark.parametrize("ks,level,cin,cout", CYL_SUBM)
+def test_cylinder_subm_kernels(cyl_pyr, ks, level, cin, cout):
+    """An anisotropic subset of the 3^3 map on K1 and K2 (the reversed
+    subset is the transposed map)."""
+    g = torch.Generator(device="cuda").manual_seed(21)
+    lv = cyl_pyr[1].levels[level]
+    km = lv.subm_subset(ks)
+    x = _feats(lv, cin, g)
+    w = _rand(km.shape[0], cin, cout, gen=g).float()
+    d = _feats(lv, cout, g).float()
+    _close(_twice(subm_conv.subm_conv, x, w, km),
+           subm_conv.subm_conv_plain(x, w, km))
+    got = subm_conv.subm_conv_bwd(d, x, w, km)
+    again = subm_conv.subm_conv_bwd(d, x, w, km)
+    ref = subm_conv.subm_conv_bwd_plain(d.to(torch.bfloat16), x, w, km)
+    for a, b, r in zip(got, again, ref):
+        assert torch.equal(a, b)
+        _close(a, r)
+
+
+@pytest.mark.parametrize("direction", ["down", "up"])
+@pytest.mark.parametrize("level,c", CYL_STRIDED)
+def test_cylinder_strided_kernels(cyl_pyr, direction, level, c):
+    """The k3 strided pool into `level` and the transposed conv out of it:
+    forward, dfeats and dW against their plain versions, twice bit for
+    bit, counted as strided / strided_bwd / strided_dw."""
+    g = torch.Generator(device="cuda").manual_seed(22)
+    fine, coarse = cyl_pyr[1].levels[level - 1], cyl_pyr[1].levels[level]
+    src, dst = (fine, coarse) if direction == "down" else (coarse, fine)
+    km, km_t = ((coarse.down_kmap, fine.up_kmap) if direction == "down"
+                else (fine.up_kmap, coarse.down_kmap))
+    x = _feats(src, c, g)
+    w = _rand(27, c, c, gen=g).float()
+    d = _feats(dst, c, g).float()
+    n = dict(cuda_lib.LAUNCHES)
+    _close(_twice(updown.strided_conv, x, w, km),
+           updown.strided_conv_plain(x, w, km))
+    got = updown.strided_conv_bwd(d, x, w, km, km_t)
+    again = updown.strided_conv_bwd(d, x, w, km, km_t)
+    ref = updown.strided_conv_bwd_plain(d.to(torch.bfloat16), x, w, km,
+                                        km_t)
+    for a, b, r in zip(got, again, ref):
+        assert torch.equal(a, b)
+        _close(a, r)
+    assert [cuda_lib.LAUNCHES[k] - n[k] for k in (
+        "strided", "strided_bwd", "strided_dw")] == [2, 2, 2]
+
+
+def test_cylinder_scatter_max_and_refinement_gather(cyl_pyr):
+    """segment_max on the card equals the CPU's, and its backward repeats
+    bit for bit; the refinement gather (K7 over the level-0 p2v table) and
+    its backward (K8) against their plain versions, twice bit for bit."""
+    from openpcseg_torch.ops.devox import PointGatherFn
+    from openpcseg_torch.ops.segment import segment_max
+    vb, p = cyl_pyr
+    g = torch.Generator(device="cuda").manual_seed(23)
+    pts = torch.randn(vb.point_feats.shape[0], 256, device="cuda",
+                      generator=g)
+    dy = torch.randn(p.levels[0].capacity, 256, device="cuda", generator=g)
+    grads = []
+    for _ in range(2):
+        x = pts.clone().requires_grad_()
+        out = segment_max(x, p.point_to_voxel0, p.levels[0].capacity)
+        out.backward(dy)
+        grads.append(x.grad)
+    assert torch.equal(grads[0], grads[1])
+    xc = pts.cpu().requires_grad_()
+    ref = segment_max(xc, p.point_to_voxel0.cpu(), p.levels[0].capacity)
+    ref.backward(dy.cpu())
+    assert torch.equal(out.detach().cpu(), ref.detach())
+    assert torch.equal(grads[0].cpu(), xc.grad)
+    up0e = _feats(p.levels[0], 128, g).float()
+    dp = torch.randn(pts.shape[0], 128, device="cuda", generator=g)
+    back = []
+    for _ in range(2):
+        v = up0e.clone().requires_grad_()
+        got = PointGatherFn.apply(v, p.p2v[0])
+        got.backward(dp)
+        back.append(v.grad)
+    assert torch.equal(back[0], back[1])
+    _close(got, devox.point_gather_plain(up0e, p.p2v[0]))
+    _close(back[0], devox.voxel_sum_plain(dp, p.p2v[0]))

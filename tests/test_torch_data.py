@@ -1,8 +1,8 @@
 """The port's copies of the JAX package's numpy host modules, held to
 their originals: SemanticKITTI metadata, augmentation, the scan reader,
-the synthetic scans, the voxel and fusion views and their BatchLoader
-(byte-identical batches over two epochs, training and eval with <pad>
-tails; the fusion view's range image and pxpy), the
+the synthetic scans, the voxel, fusion and cylinder views and their
+BatchLoader (byte-identical batches over two epochs, training and eval with
+<pad> tails; the fusion view's range image and pxpy), the
 ray-cast tree writer (the same bytes as tools/scripts/make_raycast_kitti.py),
 and the logging, TensorBoard and report utilities."""
 import logging
@@ -171,13 +171,38 @@ def test_fusion_loader_yields_jax_batches_over_two_epochs(tree, training):
         jset.resample()
 
 
+@pytest.mark.parametrize("training", [True, False])
+def test_cylinder_loader_yields_jax_batches_over_two_epochs(tree, training):
+    """The cylinder view (the voxel view: Cylinder3D partitions the points
+    on the device) under the Cylinder3D yaml's DATA keys: the same bytes as
+    JAX's over two epochs."""
+    d = {"DATASET": "semantickitti", "DATA_PATH": str(tree),
+         "CYLINDER_GRID_SIZE": [480, 360, 32],
+         "CYLINDER_SPACE_MAX": [50, 180, 2],
+         "CYLINDER_SPACE_MIN": [0, -180, -4], "AUGMENT": "GlobalAugment_LP",
+         "SCALE_AUG_RANGE": [0.95, 1.05]}
+    kw = dict(training=training, point_cap=4096, num_workers=2, seed=5)
+    tset, tload = tdata.build_dataloader(CfgDict(d), "cylinder", 2, **kw)
+    jset, jload = jdata.build_dataloader(JaxCfgDict(d), "cylinder", 2, **kw)
+    assert type(tset).__name__ == type(jset).__name__ == (
+        "SemkittiVoxelDataset")
+    assert len(tload) == len(jload) == 2
+    for _ in range(2):
+        got, want = list(tload), list(jload)
+        assert len(got) == len(want) == 2
+        for g, w in zip(got, want):
+            _same_batch(g, w)
+        tset.resample()
+        jset.resample()
+
+
 def test_loader_rank_and_unported_views(tree):
     tcfg, _ = _data_cfgs(tree)
     assert tdata.rank_and_world() == (0, 1)
     _, load = tdata.build_dataloader(tcfg, "voxel", 2, num_workers=1)
     assert (load.process_index, load.local_bs) == (0, 2)
     for modality, ds, item in (("range", "semantickitti", 14),
-                               ("cylinder", "semantickitti", 12),
+                               ("cylinder", "waymo", 15),
                                ("fusion", "waymo", 15),
                                ("voxel", "waymo", 15)):
         cfg, _ = _data_cfgs(tree, DATASET=ds)

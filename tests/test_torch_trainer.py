@@ -169,3 +169,39 @@ def test_entry_points_target_the_card_and_raise_for_unported(tree, tmp_path):
         Trainer(args, cfgs)
     with pytest.raises(NotImplementedError, match="item 15"):
         infer.main(_argv(tree, tmp_path, "--tta"))
+
+
+CYL_CFG = "tools/cfgs/voxel/semantic_kitti/cylinder_cy480_cr10.yaml"
+CYL_TINY = ["TPU.POINT_CAP_PER_SCAN", "4096", "TPU.VOXEL_CAP_PER_SCAN",
+            "4096", "TPU.VOXEL_CAP_RATIOS", "[1.0,1.0,1.0,1.0,1.0]",
+            "MODEL.INIT_SIZE", "8"]
+
+
+def test_cylinder_yaml_trains_and_infers(tree, tmp_path):
+    """The Cylinder3D yaml as it stands (cylinder view, cylindrical
+    partition, point-refinement loss) through the train CLI for an epoch
+    and the infer CLI's raw-id dump from its checkpoint, narrowed to
+    INIT_SIZE 8."""
+    logs, preds = tmp_path / "logs", tmp_path / "preds"
+
+    def argv(*extra, sets=()):
+        return ["--cfg_file", str(ROOT / CYL_CFG), "--extra_tag", "c",
+                "--log_dir", str(logs), "--batch_size", "2", "--workers",
+                "2", "--device", "cpu", "--log_interval", "1", *extra,
+                "--set", "DATA.DATA_PATH", tree, *CYL_TINY, *sets]
+    assert train.main(argv("--epochs", "1")) == 0
+    exp = next(logs.glob("**/ckp")).parent
+    recs = [json.loads(line) for line in (exp / "metrics.jsonl").open()]
+    steps = [r for r in recs if "loss" in r]
+    assert [r["step"] for r in steps] == [1, 2]
+    assert all(np.isfinite(r["loss"]) and r["voxel_overflow"] == 0
+               for r in steps)
+    assert infer.main(argv("--save_pred", "--save_raw_ids",
+                           sets=["DATA.OUTPUT_DIR", str(preds)])) == 0
+    assert "resumed from epoch 0" in _log_text(exp)
+    labels = sorted(preds.glob("sequences/08/predictions/*.label"))
+    assert len(labels) == 3
+    legal = set(np.asarray(LEARNING_MAP_INV_LUT).tolist())
+    for f in labels:
+        raw = np.fromfile(f, dtype=np.uint32)
+        assert len(raw) == N_PTS and set(np.unique(raw).tolist()) <= legal
