@@ -6,9 +6,10 @@
 The main paths are the eval and train steps of MinkUNet mk34_cr10 (the
 MODEL and OPTIM blocks of tools/cfgs/voxel/semantic_kitti/
 minkunet_mk34_cr10.yaml), of SPVCNN mk34_cr10 (tools/cfgs/fusion/
-semantic_kitti/spvcnn_mk34_cr10.yaml) and of Cylinder3D cy480_cr10
-(tools/cfgs/voxel/semantic_kitti/cylinder_cy480_cr10.yaml), at full
-width, with weights drawn
+semantic_kitti/spvcnn_mk34_cr10.yaml), of Cylinder3D cy480_cr10
+(tools/cfgs/voxel/semantic_kitti/cylinder_cy480_cr10.yaml) and of the
+range models CENet, FIDNet, RangeNet and SalsaNext (tools/cfgs/range/
+semantic_kitti/*_64x2048.yaml), at full width, with weights drawn
 from a seeded torch.Generator, on 131,072-point ray-cast scans, computing
 in bfloat16 through eight hand-written CUDA kernels (openpcseg_torch/csrc):
 
@@ -25,8 +26,11 @@ and gather_dw (counted as strided / strided_bwd / strided_dw; JAX runs
 them on XLA), and its refinement gather on K7 over the level-0 p2v table
 (K8 back; the vmean counters).
 
+The range models run float32 dense convs on cuDNN, no kernel of the port.
+
 Phases, in order (any failure exits non-zero and prints no result line):
-  1. the card's name and power limit; TF32 off for matmuls and cuDNN;
+  1. the card's name and power limit; TF32 off for matmuls and cuDNN
+     (back to torch's default, TF32 convs, for phase 13);
   2. build the kernels with nvcc (sm_90a) from the checkout's sources, and
      log ptxas's registers and spills per kernel instance;
   3. kernel phase: the launch configuration of the two gather kernels at
@@ -98,7 +102,22 @@ Phases, in order (any failure exits non-zero and prints no result line):
      its path on every step); the training reference (as 9, under its own
      JAX reading and floor); the train CLI on its yaml as it stands at
      batch 2 for one epoch, a resumed second, and the infer CLI with
-     --save_pred --save_raw_ids.
+     --save_pred --save_raw_ids;
+ 13. range phases, for each of CENet, FIDNet, RangeNet and SalsaNext from
+     its yaml as it stands (64 x 2048, float32, TF32 convs): serving
+     (REQUESTS + 1 eval and predict requests on ray-cast scans projected
+     with range_project, each re-projected to its points by the KNN:
+     hist = valid points, the p50, one profiled request's device ms and
+     idle share), the reference (numpy weights, seed_range_weights: the
+     card's eval logits against the CPU's float32 ones within
+     RANGE_REF_TOL, argmax agreement at least RANGE_REF_AGREE, both set
+     before the first card run), training (RANGE_TRAIN_STEPS steps of
+     the yaml's AdamW + onecycle: finite, the last loss below the first;
+     scans/s, one profiled step's device ms, its dense-conv share and
+     idle share); then CENet's yaml through the train CLI at batch 2 (an
+     epoch, a resumed second) and the infer CLI with --save_pred
+     --save_raw_ids (one raw id per pixel); no counter of the port's
+     kernels may move over the phase.
 Every kernel case carries CUDA-event ms of the wrapper and of the plain
 version, the kernel's profiler device ms, and its bound (bound_ms: bytes
 over the memory rate or operations over the peak rate, whichever is
@@ -2150,8 +2169,334 @@ def cylinder_phases(report, tmp, tree):
     return rows, launches, cylinder_entry_phase(report, tmp, tree)
 
 
+# == the range-view models: each yaml of tools/cfgs/range/semantic_kitti/
+# as it stands (MODEL and OPTIM: AdamW + onecycle), full width, the 64 x
+# 2048 image, float32 as in JAX. Their dense convs run on cuDNN at
+# PyTorch's default precision, TF32 (cudnn.allow_tf32 as torch sets it,
+# which the CLIs and golden runs keep); no CUDA kernel of the port lies on
+# their path, and the phases check that none launches.
+RANGE_MODELS = ("CENet", "FIDNet", "RangeNet", "SalsaNext")
+RANGE_CFG = "tools/cfgs/range/semantic_kitti/{}_64x2048.yaml"
+RANGE_H, RANGE_W = 64, 2048
+RANGE_TRAIN_STEPS = 10
+# eval logits of the same numpy weights (seed_range_weights) on one scan,
+# the card (TF32 convs) against the CPU (float32): max|card - cpu| <=
+# RANGE_REF_TOL * max|cpu|, and at least RANGE_REF_AGREE of the pixels
+# with the same argmax. Set before the first card run from a CPU emulation
+# of TF32's operand rounding (each conv's input and kernel rounded to 10
+# mantissa bits) at this scan and these weights, which read 0.87-1.20e-3
+# and agreements 0.9988-0.9995 over the four models: about 8x that error,
+# and the disagreement that error would bring (PERF.md, PR 10)
+RANGE_REF_TOL = 1e-2
+RANGE_REF_AGREE = 0.985
+RANGE_ENTRY = "CENet"    # aux heads and the dice loss: the most code
+# profiler kernel names of the dense convs: cuDNN's and CUTLASS's kernels,
+# their implicit GEMMs and cuDNN's NCHW <-> NHWC layout transposes; every
+# other kernel of a train step is the elementwise tail (BN, activations,
+# resizes, pools, losses, the optimizer)
+CONV_KERNEL_WORDS = ("cudnn", "xmma", "conv", "gemm", "cutlass", "wgrad",
+                     "dgrad", "fprop", "implicit", "winograd", "fft")
+
+
+def range_cfgs(name):
+    """The CfgDict of `name`'s shipped range yaml."""
+    from openpcseg_torch.config import CfgDict, cfg_from_yaml_file
+
+    cfgs = CfgDict()
+    cfg_from_yaml_file(str(ROOT / RANGE_CFG.format(name.lower())), cfgs)
+    return cfgs
+
+
+def range_request(seed, n_points=N_POINTS):
+    """The ray-cast scan of `seed` as the range eval view gives it: its
+    valid points projected to the 64 x 2048 image (range_project +
+    pack_scan_tensor) and the points themselves (p_label, p_px, p_py,
+    p_range over n_points, p_valid): a numpy batch of 1."""
+    from openpcseg_torch.data.range_view import pack_scan_tensor, range_project
+    from openpcseg_torch.data.raycast import raycast_batch
+
+    b = raycast_batch(seed, 1, cap=n_points)
+    v = b["valid"][0]
+    n = int(v.sum())
+    s = range_project(b["xyz"][0][v], b["feats"][0][v, 3],
+                      b["labels"][0][v], RANGE_H, RANGE_W)
+    scan, label, mask = pack_scan_tensor(s)
+    pts = {"p_label": np.full(n_points, -1, np.int32),
+           "p_px": np.zeros(n_points, np.int32),
+           "p_py": np.zeros(n_points, np.int32),
+           "p_range": np.zeros(n_points, np.float32),
+           "p_valid": np.zeros(n_points, bool)}
+    pts["p_label"][:n] = b["labels"][0][v]
+    pts["p_px"][:n] = s["proj_x"]
+    pts["p_py"][:n] = s["proj_y"]
+    pts["p_range"][:n] = s["unproj_range"]
+    pts["p_valid"][:n] = True
+    out = {"scan": scan[None], "label": label[None], "mask": mask[None]}
+    out.update({k: a[None] for k, a in pts.items()})
+    return out
+
+
+def seed_range_weights(model, seed):
+    """Overwrite every conv and transposed-conv kernel of a range model (in
+    module order) with draws of numpy's generator seeded with `seed`, at
+    the scale of its own initializer (seed_weights' truncated normal over
+    fan in): the same weights on every machine. Biases and BN keep their
+    initial values."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+                cin = (m.in_channels if isinstance(m, torch.nn.Conv2d)
+                       else m.weight.shape[0])
+                fan_in = cin * m.kernel_size[0] * m.kernel_size[1]
+                z = rng.standard_normal(m.weight.shape)
+                bad = np.abs(z) > 2
+                while bad.any():
+                    z[bad] = rng.standard_normal(int(bad.sum()))
+                    bad = np.abs(z) > 2
+                m.weight.copy_(torch.from_numpy(
+                    z * (1.0 / fan_in) ** 0.5 / 0.87962566103423978))
+
+
+def conv_share(rows):
+    """(device ms of the dense-conv kernels, of the rest) of a profile's
+    rows (kernel, launches, ms)."""
+    conv = sum(ms for k, _, ms in rows
+               if any(w in k.lower() for w in CONV_KERNEL_WORDS))
+    return conv, sum(ms for _, _, ms in rows) - conv
+
+
+def no_port_kernels(tag):
+    """Fail where a kernel of the port launched, or a plain version ran on
+    a CUDA tensor, since the counters were last reset: the range path has
+    none."""
+    from openpcseg_torch.ops import cuda_lib
+
+    launched = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+    plain = {k: v for k, v in cuda_lib.PLAIN_ON_CUDA.items() if v}
+    if launched or plain:
+        raise SystemExit(f"{tag}: the range path launched kernels of the "
+                         f"port {launched} or ran their plain versions on "
+                         f"the card {plain}")
+
+
+def range_serving(task, name, report, key):
+    """REQUESTS + 1 eval and predict requests on scans SEED + 1.. (the
+    first a warm-up), each re-projected to its points by the KNN: hist
+    sums to the valid points, predictions [1, 64, 2048] in range; the p50,
+    one profiled request's device ms and the idle share."""
+    from openpcseg_torch.engine.task import batch_to_device
+
+    scans = [range_request(SEED + 1 + i) for i in range(REQUESTS + 1)]
+    lat = []
+    for i, b in enumerate(scans):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = task.eval_step(batch_to_device(b, "cuda"))["hist"].cpu()
+        ms = (time.perf_counter() - t0) * 1e3
+        pred = task.predict_step(batch_to_device(b, "cuda")).cpu()
+        n_valid = int(b["p_valid"].sum())
+        log(f"[{key}serve] request {i}{' (warm-up)' if i == 0 else ''}: "
+            f"{n_valid} points, {int(b['mask'].sum())} pixels, hist sum "
+            f"{int(hist.sum())} == valid points "
+            f"{int(hist.sum()) == n_valid}, eval_step {ms:.2f} ms, pred "
+            f"{tuple(pred.shape)}")
+        if int(hist.sum()) != n_valid:
+            raise SystemExit(f"{name} serving: hist/point-count mismatch")
+        if tuple(pred.shape) != (1, RANGE_H, RANGE_W) or int(
+                pred.min()) < 0 or int(pred.max()) >= NUM_CLASS:
+            raise SystemExit(f"{name} serving: bad predictions "
+                             f"{tuple(pred.shape)}")
+        if i > 0:
+            lat.append(ms)
+    p50 = statistics.median(lat)
+    b = batch_to_device(scans[1], "cuda")
+    dev = profile_window(f"{key}eval_step", lambda: task.eval_step(b),
+                         report)
+    idle = 1.0 - dev / p50
+    log(f"[{key}serve] p50 eval_step latency per scan {p50:.3f} ms over "
+        f"{len(lat)} requests (min {min(lat):.3f}, max {max(lat):.3f}); "
+        f"device {dev:.3f} ms, idle share {idle:.4f}")
+    report.update({f"{key}p50_ms": p50, f"{key}latencies_ms": lat,
+                   f"{key}eval_device_ms": dev, f"{key}eval_idle_share": idle})
+
+
+def range_reference(name, cfgs, report, key):
+    """seed_range_weights(SEED) on scan SEED: the card's eval logits
+    against the CPU's float32 ones, under RANGE_REF_TOL and
+    RANGE_REF_AGREE."""
+    from openpcseg_torch.engine.task import SegTask, batch_to_device
+
+    b = range_request(SEED)
+    logits, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        t = SegTask(cfgs, NUM_CLASS, device=dev, seed=SEED)
+        seed_range_weights(t.model, SEED)
+        logits[dev] = t.range_logits(batch_to_device(b, dev)).cpu()
+        secs[dev] = time.perf_counter() - t0
+    g, r = logits["cuda"], logits["cpu"]
+    err = float((g - r).abs().max() / r.abs().max())
+    agree = float((g.argmax(1) == r.argmax(1)).float().mean())
+    finite = bool(torch.isfinite(g).all())
+    log(f"[{key}reference] card (TF32 convs) vs CPU float32 eval logits "
+        f"{tuple(g.shape)}: finite {finite}, max|diff|/max|ref| {err:.3e} "
+        f"(tolerance {RANGE_REF_TOL}), argmax agreement {agree:.5f} (at "
+        f"least {RANGE_REF_AGREE}); CPU {secs['cpu']:.1f} s")
+    report[f"{key}reference"] = dict(rel_max_err=err, argmax_agree=agree,
+                                     cpu_s=secs["cpu"])
+    if not finite or err > RANGE_REF_TOL or agree < RANGE_REF_AGREE:
+        raise SystemExit(f"{name} reference: the card's logits disagree "
+                         "with the CPU float32 reference")
+
+
+def range_training(name, cfgs, report, key):
+    """RANGE_TRAIN_STEPS train steps of the yaml's AdamW + onecycle on the
+    repeated scan SEED + 1 at batch 1: finite losses, the last below the
+    first; scans/s, one profiled step's device ms, its dense-conv share
+    and the idle share."""
+    from openpcseg_torch.engine.task import SegTask, batch_to_device
+
+    task = SegTask(cfgs, NUM_CLASS, device="cuda", seed=SEED,
+                   iters_per_epoch=ITERS_PER_EPOCH)
+    req = range_request(SEED + 1)
+    b = batch_to_device({k: req[k] for k in ("scan", "label", "mask")},
+                        "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(RANGE_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = task.train_step(b)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        ms = (time.perf_counter() - t0) * 1e3
+        log(f"[{key}train] step {i}: loss {loss:.5f} grad_norm {gnorm:.4f} "
+            f"lr {m['lr']:.3e} wall {ms:.2f} ms")
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            raise SystemExit(f"{name} training: step {i} loss {loss} grad "
+                             f"norm {gnorm}")
+        steps.append(dict(loss=loss, grad_norm=gnorm, lr=m["lr"],
+                          wall_ms=ms))
+    if not steps[-1]["loss"] < steps[0]["loss"]:
+        raise SystemExit(f"{name} training: the last loss "
+                         f"{steps[-1]['loss']} is not below the first "
+                         f"{steps[0]['loss']}")
+    med = statistics.median(s["wall_ms"] for s in steps[1:])
+    mem = torch.cuda.max_memory_allocated()
+    dev = _window(f"{key}train_step", _profiled(lambda: task.train_step(b),
+                                                1), report)
+    conv, rest = conv_share([(r["kernel"], r["count"], r["ms"]) for r in
+                             report[f"profile_{key}train_step"]])
+    idle = 1.0 - dev / med
+    log(f"[{key}train] median train_step {med:.3f} ms = {1e3 / med:.3f} "
+        f"scans/s (batch 1); loss {steps[0]['loss']:.5f} -> "
+        f"{steps[-1]['loss']:.5f}; device {dev:.3f} ms, idle share "
+        f"{idle:.4f}; dense convs {conv:.3f} ms, the rest {rest:.3f} ms "
+        f"({conv / max(conv + rest, 1e-9):.1%} convs); peak memory "
+        f"{mem / 2**30:.2f} GiB")
+    report.update({f"{key}train_steps": steps, f"{key}train_median_ms": med,
+                   f"{key}train_scans_per_s": 1e3 / med,
+                   f"{key}train_device_ms": dev,
+                   f"{key}train_idle_share": idle,
+                   f"{key}train_conv_ms": conv, f"{key}train_rest_ms": rest,
+                   f"{key}train_max_memory_allocated": mem})
+
+
+def range_entry_phase(report, tmp, tree):
+    """The train CLI on RANGE_ENTRY's yaml as it stands (the range view
+    with its augmentations, AdamW + onecycle) at batch ENTRY_BATCH over
+    `tree` for one epoch, again to two (it must resume), then the infer
+    CLI with --save_pred --save_raw_ids: one raw id per pixel of each val
+    scan's image, every one in the inverse label map."""
+    from openpcseg_torch.cli import infer, train
+    from openpcseg_torch.data.semantickitti_meta import LEARNING_MAP_INV_LUT
+    from openpcseg_torch.ops import cuda_lib
+
+    preds = Path(tmp) / "range_preds"
+    argv = ["--cfg_file", str(ROOT / RANGE_CFG.format(RANGE_ENTRY.lower())),
+            "--log_dir", f"{tmp}/range_logs", "--extra_tag", "chip_smoke",
+            "--batch_size", str(ENTRY_BATCH), "--log_interval", "1"]
+    sets = ["--set", "DATA.DATA_PATH", tree]
+    cuda_lib.reset_counts()
+    t0 = time.perf_counter()
+    for epochs in (1, 2):
+        if train.main(argv + ["--epochs", str(epochs)] + sets) != 0:
+            raise SystemExit(f"range entry point: train --epochs {epochs} "
+                             "failed")
+    if infer.main(argv + ["--save_pred", "--save_raw_ids"] + sets
+                  + ["DATA.OUTPUT_DIR", str(preds)]) != 0:
+        raise SystemExit("range entry point: infer failed")
+    wall = time.perf_counter() - t0
+    no_port_kernels("range entry point")
+    logs, steps, evals, ckps = _run_logs(f"{tmp}/range_logs")
+    legal = set(LEARNING_MAP_INV_LUT.tolist())
+    dumped = []
+    for f in sorted(preds.glob("sequences/08/predictions/*.label")):
+        ids = np.fromfile(f, dtype=np.uint32)
+        dumped.append(dict(file=f.name, ids=len(ids),
+                           legal=set(np.unique(ids).tolist()) <= legal))
+    step_ms = [r["step_time"] * 1e3 for r in steps]
+    miou = evals[-1]["val_miou"] if evals else float("nan")
+    log(f"[range-entry] train CLI on {RANGE_ENTRY}'s yaml, batch "
+        f"{ENTRY_BATCH}: step ms {', '.join(f'{t:.1f}' for t in step_ms)}, "
+        f"val mIoU {miou:.2f} (per point, KNN); {wall:.1f} s for train, "
+        f"resume and infer; dumps {dumped}")
+    report["range_entry_point"] = dict(
+        steps=steps, evals=evals, checkpoints=ckps, dumped=dumped,
+        val_miou=miou, wall_s=wall)
+    faults = []
+    n_steps = ENTRY_SCANS[0] // ENTRY_BATCH * 2
+    if "resumed from epoch 0" not in logs:
+        faults.append("the second train call did not resume from epoch 0")
+    if [r["step"] for r in steps] != list(range(1, n_steps + 1)) or not all(
+            np.isfinite(r["loss"]) for r in steps):
+        faults.append(f"train steps {steps}")
+    if ckps != ["0.pt", "1.pt"] or len(evals) != 3 or not all(
+            np.isfinite(e["val_miou"]) for e in evals):
+        faults.append(f"checkpoints {ckps}, evals {evals}")
+    if len(dumped) != ENTRY_SCANS[1] or not all(
+            d["ids"] == RANGE_H * RANGE_W and d["legal"] for d in dumped):
+        faults.append(f"the --save_raw_ids dump is wrong: {dumped}")
+    if faults:
+        raise SystemExit("range entry-point phase: " + "; ".join(faults))
+
+
+def range_phases(report, tmp, tree, cudnn_tf32):
+    """The four range models from their yamls: serving with per-point KNN,
+    the card-against-CPU reference, training; then RANGE_ENTRY through
+    the CLIs. cuDNN's TF32 is set back to torch's default, `cudnn_tf32`,
+    for these phases; no kernel of the port launches in them. Returns the
+    launches of every counter over the phases (all 0)."""
+    from openpcseg_torch.engine.task import SegTask
+    from openpcseg_torch.ops import cuda_lib
+
+    t0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    log(f"[range] cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+        f"(torch's default) for the range phases")
+    cuda_lib.reset_counts()
+    for name in RANGE_MODELS:
+        key = f"{name.lower()}_"
+        cfgs = range_cfgs(name)
+        task = SegTask(cfgs, NUM_CLASS, device="cuda", seed=SEED)
+        n_par = sum(p.numel() for p in task.model.parameters())
+        log(f"[{key}serve] {name} from {RANGE_CFG.format(name.lower())}: "
+            f"{n_par} parameters, {RANGE_H} x {RANGE_W}, float32")
+        range_serving(task, name, report, key)
+        del task
+        range_reference(name, cfgs, report, key)
+        range_training(name, cfgs, report, key)
+    no_port_kernels("range phases")
+    launches = dict(cuda_lib.LAUNCHES)
+    range_entry_phase(report, tmp, tree)
+    report["range_phases_s"] = time.perf_counter() - t0
+    log(f"[range] the range phases took {report['range_phases_s']:.1f} s")
+    return {k: v + cuda_lib.LAUNCHES[k] for k, v in launches.items()}
+
+
 def kernel_report(rows, launches, entry_launches, spv_launches,
-                  spv_entry_launches, cyl_launches, cyl_entry_launches):
+                  spv_entry_launches, cyl_launches, cyl_entry_launches,
+                  range_launches):
     """The kernels JSON line: per kernel its launches on the main paths
     (MinkUNet's serving and training phases, SPVCNN's, whose K7 and K8
     also count the launches of its mean-voxelize, and Cylinder3D's), over
@@ -2161,7 +2506,8 @@ def kernel_report(rows, launches, entry_launches, spv_launches,
     K7 and K8, the library call's time; K7 and K8 also their heaviest
     mean-voxelize case; and Cylinder3D's heaviest case of the kernel
     (K1 / K2 its submanifold convs, K3 / K5 its k3 strided convs' forward /
-    backward, K7 / K8 its refinement gather / its backward)."""
+    backward, K7 / K8 its refinement gather / its backward); and its
+    launches over the range phases, which run none of them."""
     kernels = []
     for name, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name
@@ -2180,6 +2526,9 @@ def kernel_report(rows, launches, entry_launches, spv_launches,
             spvcnn_entry_launches=sum(spv_entry_launches[k] for k in spv
                                       if k),
             cylinder_entry_launches=sum(cyl_entry_launches[k] for k in cyl),
+            range_launches=sum(range_launches[k] for k in
+                               (meta["counter"], meta.get("vmean_counter"),
+                                *cyl) if k),
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=heavy["ms"], plain_ms=heavy["plain_ms"],
             device_ms=heavy["device_ms"], bound_ms=heavy["bound_ms"],
@@ -2252,6 +2601,7 @@ def main() -> int:
 
     card = card_line()
     log(f"[card] {card}")
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32     # torch's default
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -2296,11 +2646,12 @@ def main() -> int:
             report, tmp, tree)
         cyl_rows, cyl_launches, cyl_entry_launches = cylinder_phases(
             report, tmp, tree)
+        range_launches = range_phases(report, tmp, tree, cudnn_tf32)
     rows += spv_rows + cyl_rows
 
     kernels = kernel_report(rows, launches, entry_launches, spv_launches,
                             spv_entry_launches, cyl_launches,
-                            cyl_entry_launches)
+                            cyl_entry_launches, range_launches)
     args.report.parent.mkdir(parents=True, exist_ok=True)
     args.report.write_text(json.dumps(report, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,9 +5,10 @@ counterpart there. The package imports torch, numpy and the standard
 library only; its hand-written CUDA kernels (``csrc/``) are built with nvcc
 at first use on a CUDA tensor (``ops/cuda_lib.py``).
 
-It carries MinkUNet (voxel modality) and SPVCNN (voxel and fusion
-modalities) on SemanticKITTI and ScribbleKITTI, training and inference, at
-any batch per card:
+It carries MinkUNet (voxel modality), SPVCNN (voxel and fusion
+modalities), Cylinder3D (cylinder modality) and the range-view CENet,
+FIDNet, RangeNet and SalsaNext (range modality) on SemanticKITTI and
+ScribbleKITTI, training and inference, at any batch per card:
 
 - entry points: ``cli.train`` and ``cli.infer`` (the flags of the JAX
   package's ``train.py`` and ``infer.py``) and ``cli.golden_run`` (the
@@ -16,12 +17,15 @@ any batch per card:
 - ``engine.trainer.Trainer``: the experiment tree, logs, checkpoints and
   the epoch loops, around ``engine.task.SegTask`` (``train_step``,
   ``eval_step``, ``predict_step``);
-- ``data``: the SemanticKITTI reader, augmentations, the voxel and fusion
-  views and their ``BatchLoader``, and ray-cast surrogate scans and trees;
+- ``data``: the SemanticKITTI reader, augmentations, the voxel, fusion
+  and range views and their ``BatchLoader``, and ray-cast surrogate scans
+  and trees;
 - the step: ``core.batch`` (voxelize) -> ``core.geometry`` (pyramid,
   kernel maps, devoxelize and point-to-voxel tables) ->
-  ``models.minkunet`` / ``models.spvcnn`` over ``ops`` (the kernels'
-  wrappers) -> ``losses`` -> ``optim``, and ``utils.metrics``.
+  ``models.minkunet`` / ``models.spvcnn`` / ``models.cylinder3d`` over
+  ``ops`` (the kernels' wrappers) -> ``losses`` -> ``optim``, and
+  ``utils.metrics``; a range step runs ``models.range_*`` (dense convs
+  on cuDNN) -> ``losses.range_losses``, and its eval ``ops.range_knn``.
 """
 
 __version__ = "0.1.0"

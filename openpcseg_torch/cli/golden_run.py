@@ -1,8 +1,10 @@
-"""Golden surrogate runs of MinkUNet, SPVCNN and Cylinder3D: the
-convergence gate of the port.
+"""Golden surrogate runs of MinkUNet, SPVCNN, Cylinder3D and the range
+models (CENet, FIDNet, RangeNet, SalsaNext): the convergence gate of the
+port.
 
-Counterpart of ``tools/scripts/golden_run.py`` for the minkunet, spvcnn and
-cylinder models (``--model``, the blocks of its ``model_setup``). With no dataset
+Counterpart of ``tools/scripts/golden_run.py`` for the minkunet, spvcnn,
+cylinder, cenet, fidnet, rangenet and salsanext models (``--model``, the
+blocks of its ``model_setup``). With no dataset
 it trains on the ray-cast surrogate (``data/raycast.py``): 128 train scans
 (seeds 0-127) and 16 held-out val scans (seeds 10000-10015), each
 ``raycast_batch(seed, 1, cap=131072)``; batch 1, the model's widths, the
@@ -14,10 +16,17 @@ curves to ``--out``. The gate: the mean of the last 3 evals is at least
 the model's ``accept_threshold`` in ``GOLDEN_r05_summary.json``, with no
 voxel dropped; the payload's ``gate`` says whether it passed.
 
+A range model takes its yaml's MODEL block with KNN_POST off, the same
+SGD recipe, and each scan projected to a 64 x 2048 range image
+(``data/range_view.py range_project`` + ``pack_scan_tensor`` over the
+scan's valid points); its eval counts pixels.
+
     python -m openpcseg_torch.cli.golden_run --model spvcnn --seed 0 \\
         --out GOLDEN_torch_spvcnn_s0.json
     python -m openpcseg_torch.cli.golden_run --model cylinder --seed 0 \\
         --out GOLDEN_torch_cylinder_s0.json
+    python -m openpcseg_torch.cli.golden_run --model cenet --seed 0 \\
+        --out GOLDEN_torch_cenet_s0.json
     python -m openpcseg_torch.cli.golden_run --data_path <kitti sequences>
 
 With ``--data_path`` it runs the port's training CLI on a real tree
@@ -48,7 +57,13 @@ CFG_FILES = {
     "minkunet": "tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10.yaml",
     "spvcnn": "tools/cfgs/fusion/semantic_kitti/spvcnn_mk34_cr10.yaml",
     "cylinder": "tools/cfgs/voxel/semantic_kitti/cylinder_cy480_cr10.yaml",
+    "cenet": "tools/cfgs/range/semantic_kitti/cenet_64x2048.yaml",
+    "fidnet": "tools/cfgs/range/semantic_kitti/fidnet_64x2048.yaml",
+    "rangenet": "tools/cfgs/range/semantic_kitti/rangenet_64x2048.yaml",
+    "salsanext": "tools/cfgs/range/semantic_kitti/salsanext_64x2048.yaml",
 }
+RANGE_MODELS = ("cenet", "fidnet", "rangenet", "salsanext")
+RANGE_H, RANGE_W = 64, 2048
 # the ray-cast surrogate's NUM_LAYER per model (tools/scripts/golden_run.py)
 NUM_LAYER = {"minkunet": [2, 3, 4, 6, 2, 2, 2, 2], "spvcnn": [2] * 8}
 SUMMARY = "GOLDEN_r05_summary.json"
@@ -78,6 +93,18 @@ def base_optim(batch: int = 1) -> dict:
 
 def model_setup(cr: float, voxel_cap: int = 98304,
                 model: str = "minkunet") -> dict:
+    if model in RANGE_MODELS:
+        from openpcseg_torch.config import CfgDict, cfg_from_yaml_file
+        ycfg = CfgDict()
+        cfg_from_yaml_file(str(ROOT / CFG_FILES[model]), ycfg)
+        return {
+            "MODALITY": "range",
+            "DATA": {"DATASET": "semantickitti", "H": RANGE_H,
+                     "W": RANGE_W},
+            "MODEL": dict(ycfg.MODEL, KNN_POST=False),
+            "OPTIM": base_optim(),
+            "TPU": {},
+        }
     if model == "cylinder":     # INIT_SIZE 32 whatever `cr`, as in JAX
         return {
             "MODALITY": "cylinder",
@@ -130,6 +157,17 @@ def describe_device(device: torch.device) -> str:
     return line
 
 
+def to_range(b: dict) -> dict:
+    """A cached ray-cast scan (batch of 1) as a range-view batch: its valid
+    points projected to RANGE_H x RANGE_W (JAX golden_run's to_range)."""
+    from openpcseg_torch.data.range_view import pack_scan_tensor, range_project
+    v = b["valid"][0].astype(bool)
+    s = range_project(b["xyz"][0][v], b["feats"][0][v, 3],
+                      b["labels"][0][v], RANGE_H, RANGE_W)
+    scan, label, mask = pack_scan_tensor(s)
+    return {"scan": scan[None], "label": label[None], "mask": mask[None]}
+
+
 def load_scans(n_train: int, n_val: int, cap: int, workers: int,
                cache: Path) -> dict:
     """{seed: host batch} of the train and val scans: from the cache file
@@ -174,6 +212,8 @@ def run_surrogate(args) -> dict:
     t0 = time.time()
     host = load_scans(args.n_train, args.n_val, args.point_cap,
                       args.workers, cache)
+    if args.model in RANGE_MODELS:
+        host = {s: to_range(b) for s, b in host.items()}
     print(f"scan cache ready ({time.time() - t0:.0f}s)", flush=True)
 
     # warmup_frac of the steps ramp the LR (WARMUP_EPOCH 1 = one "epoch" of

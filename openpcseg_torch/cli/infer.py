@@ -60,7 +60,9 @@ def dump_predictions(trainer, out_dir: Path, raw_ids: bool = False) -> int:
     """Per-scan argmax of the val split, one file per scan: ``<seq>_<frame>
     .npy`` (int32 train ids), or with raw_ids the SemanticKITTI submission
     layout ``sequences/<seq>/predictions/<frame>.label`` (uint32 raw ids
-    through the inverse LEARNING_MAP). Padded eval tails are skipped.
+    through the inverse LEARNING_MAP): a voxel model's per valid point, a
+    range model's per pixel of its H x W image. Padded eval tails are
+    skipped.
     Returns the number of files written."""
     inv_lut = None
     if raw_ids:
@@ -78,11 +80,14 @@ def dump_predictions(trainer, out_dir: Path, raw_ids: bool = False) -> int:
     for batch in trainer.val_loader:
         preds = trainer.task.predict_step(
             trainer._device_batch(batch)).cpu().numpy()
-        valid = np.asarray(batch["valid"])
+        valid = batch.get("valid")
         for i, name in enumerate(batch.get("name", range(len(preds)))):
             if str(name) == "<pad>":
                 continue  # eval padding (BatchLoader pad_last)
-            p = preds[i][valid[i]]
+            # a range model's predictions are its image's pixels, [H, W]
+            # in row order, as JAX's infer.py writes them
+            p = preds[i] if valid is None else preds[i][np.asarray(
+                valid[i])]
             parts = str(name).replace("\\", "/").split("/")
             named = len(parts) >= 3 and parts[-1].endswith(".bin")
             if inv_lut is not None:

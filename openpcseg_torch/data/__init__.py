@@ -2,7 +2,7 @@
 
 Counterpart of ``openpcseg_tpu/data/__init__.py``: ``build_dataloader``
 maps (modality, dataset) to a view and wraps it in a ``BatchLoader``. The
-port has the voxel, fusion and cylinder views of SemanticKITTI and
+port has the voxel, fusion, cylinder and range views of SemanticKITTI and
 ScribbleKITTI (the cylinder view is the voxel view: Cylinder3D partitions
 the points on the device, ``core.batch.cylinder_points_batch``);
 every other view of the JAX package raises ``NotImplementedError`` naming
@@ -12,6 +12,7 @@ and trees without a dataset.
 from __future__ import annotations
 
 from .fusion_view import SemkittiFusionDataset
+from .range_view import SemkittiRangeViewDataset
 from .voxel_view import BatchLoader, SemkittiVoxelDataset, collate  # noqa: F401
 
 _VIEWS = {
@@ -21,11 +22,12 @@ _VIEWS = {
     ("fusion", "scribblekitti"): SemkittiFusionDataset,
     ("cylinder", "semantickitti"): SemkittiVoxelDataset,
     ("cylinder", "scribblekitti"): SemkittiVoxelDataset,
+    ("range", "semantickitti"): SemkittiRangeViewDataset,
+    ("range", "scribblekitti"): SemkittiRangeViewDataset,
 }
 # the JAX package's other views, and the ROADMAP.md Queue 1 item that
 # ports each
 _NOT_PORTED = {
-    ("range", "semantickitti"): 14, ("range", "scribblekitti"): 14,
     ("voxel", "waymo"): 15, ("cylinder", "waymo"): 15,
     ("fusion", "waymo"): 15, ("voxel", "nuscenes"): 15,
     ("cylinder", "nuscenes"): 15, ("range", "nuscenes"): 15,

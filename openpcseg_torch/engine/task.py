@@ -1,6 +1,8 @@
 """SegTask: the train / eval core for one (config, model) pair: the voxel
-and fusion modalities of the voxel-input segmentors (MinkUNet, SPVCNN) and
-the cylinder modality of the point-input Cylinder3D.
+and fusion modalities of the voxel-input segmentors (MinkUNet, SPVCNN),
+the cylinder modality of the point-input Cylinder3D and the range
+modality of the dense range-image CNNs (CENet, FIDNet, RangeNet,
+SalsaNext).
 
 Counterpart of ``openpcseg_tpu/engine/task.py`` (``default_caps``,
 ``preprocess``, ``train_step``, ``eval_step``, ``predict_step``), all on
@@ -13,6 +15,12 @@ Counterpart of ``openpcseg_tpu/engine/task.py`` (``default_caps``,
   gradient clipping + the optimizer update at the scheduled lr;
 - one eval step = the same forward with running-statistics BN + argmax
   re-projected to every point through the inverse map + confusion matrix.
+
+A range step runs the model on the batch's range image [B, H, W, 6]
+(float32, the model's aux heads in training) with the range losses of the
+MODEL block (``losses/range_losses.py``); its eval re-projects the pixel
+argmax to the batch's points (``p_*``), KNN-refined unless
+MODEL.KNN_POST is off, or counts pixels where the batch has no points.
 """
 from __future__ import annotations
 
@@ -29,13 +37,6 @@ from ..models import build_segmentor
 from ..ops.coords import Keys
 from ..optim import build_optimizer
 from ..utils.metrics import confusion_matrix
-
-
-# the JAX package's other modality and the ROADMAP.md Queue 1 item that
-# ports it; "fusion" runs here for the models whose input is the voxel
-# features (SPVCNN; RPVNet, whose input also takes the range image, is
-# item 13 and not in the registry)
-_NOT_PORTED = {"range": 14}
 
 
 def default_caps(voxel_cap0: int, num_levels: int,
@@ -85,34 +86,56 @@ class SegTask:
             raise RuntimeError(
                 f"SegTask: device {self.device} asked for, but torch sees no "
                 f"CUDA device (pass device='cpu' to run on the CPU)")
-        self.compute_dtype = compute_dtype
         modality = cfgs.get("MODALITY", "voxel")
-        if modality in _NOT_PORTED:
-            raise NotImplementedError(
-                f"the {modality} modality is not ported yet (ROADMAP.md "
-                f"Queue 1 item {_NOT_PORTED[modality]})")
         self.modality = modality
+        self.is_range = modality == "range"
+        # the range models compute in float32 whatever `compute_dtype`, as
+        # the JAX modules do
+        self.compute_dtype = torch.float32 if self.is_range else compute_dtype
         data = cfgs["DATA"]
+        model_cfg = cfgs["MODEL"]
         if modality == "cylinder":
             self.cylinder = dict(
                 space_min=tuple(data["CYLINDER_SPACE_MIN"]),
                 space_max=tuple(data["CYLINDER_SPACE_MAX"]),
                 grid_size=tuple(data["CYLINDER_GRID_SIZE"]))
-        else:
+        elif not self.is_range:
             self.voxel_size = float(data["VOXEL_SIZE"])
-        model_cfg = cfgs["MODEL"]
         self.model = build_segmentor(model_cfg, num_class,
                                      compute_dtype=compute_dtype)
         self.model.reset_parameters(torch.Generator().manual_seed(seed))
         self.model.to(self.device).eval()
-        spec = type(self.model).geometry_spec()
-        self.geometry = {k: v for k, v in spec.items() if k != "num_levels"}
-        self.point_input = getattr(type(self.model), "INPUT_MODE",
-                                   "voxel") == "point"
-        tpu_cfg = cfgs.get("TPU", {})
-        cap0 = voxel_cap_per_scan or tpu_cfg.get("VOXEL_CAP_PER_SCAN", 98304)
-        self.caps = default_caps(cap0 * batch_per_device, spec["num_levels"],
-                                 tpu_cfg.get("VOXEL_CAP_RATIOS", None))
+        if self.is_range:
+            if model_cfg.get("POST_CRF", None):
+                raise NotImplementedError(
+                    "MODEL.POST_CRF (ops/range_postproc.py crf_refine) is "
+                    "not ported yet (ROADMAP.md Queue 1 item 15)")
+            # the loss knobs of the MODEL block (JAX task.py:128-137)
+            self.range_loss_kwargs = dict(
+                loss_kind=model_cfg.get("LOSS", "wce"),
+                top_k_percent=float(model_cfg.get("TOP_K_PERCENT_PIXELS",
+                                                  1.0)),
+                if_ls=bool(model_cfg.get("IF_LS_LOSS", True)),
+                if_bd=bool(model_cfg.get("IF_BD_LOSS", True)),
+                ignore_index=model_cfg.get("IGNORE_LABEL", 0))
+            knn = model_cfg.get("KNN_POST", True)
+            kw = knn if isinstance(knn, dict) else {}
+            self.knn = dict(k=int(kw.get("K", 5)),
+                            search=int(kw.get("SEARCH", 5)),
+                            cutoff=float(kw.get("CUTOFF", 1.0))) if knn \
+                else None
+        else:
+            spec = type(self.model).geometry_spec()
+            self.geometry = {k: v for k, v in spec.items()
+                             if k != "num_levels"}
+            self.point_input = getattr(type(self.model), "INPUT_MODE",
+                                       "voxel") == "point"
+            tpu_cfg = cfgs.get("TPU", {})
+            cap0 = voxel_cap_per_scan or tpu_cfg.get("VOXEL_CAP_PER_SCAN",
+                                                     98304)
+            self.caps = default_caps(cap0 * batch_per_device,
+                                     spec["num_levels"],
+                                     tpu_cfg.get("VOXEL_CAP_RATIOS", None))
 
         loss_cfg = model_cfg.get("LOSS_CONFIG", {}) or {}
         self.losses = Losses(
@@ -180,6 +203,8 @@ class SegTask:
         if self.optimizer is None:
             raise RuntimeError("SegTask.train_step needs an OPTIM block")
         self.model.train()
+        if self.is_range:
+            return self._range_train_step(batch)
         vb, pyr = self.preprocess(batch)
         self.optimizer.zero_grad(set_to_none=True)
         logits, aux = self._run_model(vb, pyr, generator=self.generator)
@@ -191,6 +216,15 @@ class SegTask:
                 aux["point_refine_logits"], vb.point_labels, vb.point_valid,
                 ignore_index=self.losses.ignore_index,
                 label_smoothing=self.losses.label_smoothing)
+        lr, grad_norm = self._update(loss)
+        return {"loss": loss.detach(), "lr": lr,
+                "num_voxels": vb.num_voxels,
+                "voxel_overflow": self.voxel_overflow(vb, pyr),
+                "grad_norm": grad_norm}
+
+    def _update(self, loss: torch.Tensor):
+        """Backward, clip, and the optimizer step at the scheduled lr ->
+        (lr, the gradient norm before clipping)."""
         loss.backward()
         params = [p for p in self.model.parameters() if p.grad is not None]
         clip = self.optim_cfg.get("GRAD_NORM_CLIP", None)
@@ -201,10 +235,57 @@ class SegTask:
             group["lr"] = lr
         self.optimizer.step()
         self.step += 1
-        return {"loss": loss.detach(), "lr": lr,
-                "num_voxels": vb.num_voxels,
-                "voxel_overflow": self.voxel_overflow(vb, pyr),
-                "grad_norm": grad_norm.detach()}
+        return lr, grad_norm.detach()
+
+    def _range_train_step(self, batch: Dict[str, torch.Tensor]):
+        """JAX ``_range_train_step``: the model with its aux heads, the
+        range losses, clip and update; no voxels, so 0 voxels and 0
+        overflow."""
+        from ..losses.range_losses import range_seg_loss
+
+        self.optimizer.zero_grad(set_to_none=True)
+        logits, aux = self.model(batch["scan"], generator=self.generator)
+        loss = range_seg_loss(logits, aux, batch["label"],
+                              **self.range_loss_kwargs)
+        lr, grad_norm = self._update(loss)
+        zero = torch.zeros((), dtype=torch.int32, device=self.device)
+        return {"loss": loss.detach(), "lr": lr, "num_voxels": zero,
+                "voxel_overflow": zero, "grad_norm": grad_norm}
+
+    @torch.no_grad()
+    def range_logits(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Eval forward of a range model -> logits [B, num_class, H, W]."""
+        self.model.eval()
+        return self.model(batch["scan"])[0]
+
+    @torch.no_grad()
+    def _range_eval_step(self, batch: Dict[str, torch.Tensor]):
+        """JAX ``_range_eval_step``: with the batch's points (``p_label``,
+        ``p_px``, ``p_py``, ``p_range``, ``p_valid``), the pixel argmax
+        re-projected to each point, KNN-refined unless MODEL.KNN_POST is
+        off, and a per-point histogram; else a per-pixel one."""
+        pred_img = self.range_logits(batch).argmax(1).to(torch.int32)
+        if "p_label" in batch:
+            if self.knn is not None:
+                from ..ops.range_knn import knn_postprocess
+                point_pred = knn_postprocess(
+                    batch["scan"][..., 4] * 80.0, pred_img,
+                    batch["p_range"], batch["p_px"], batch["p_py"],
+                    batch["p_valid"], num_class=self.num_class, **self.knn)
+            else:
+                w = pred_img.shape[-1]
+                point_pred = pred_img.reshape(pred_img.shape[0], -1).gather(
+                    1, (batch["p_py"] * w + batch["p_px"]).long())
+            hist = confusion_matrix(
+                point_pred.reshape(-1), batch["p_label"].reshape(-1),
+                batch["p_valid"].reshape(-1), self.num_class)
+        else:
+            labels = batch["label"].reshape(-1)
+            hist = confusion_matrix(pred_img.reshape(-1), labels,
+                                    torch.ones_like(labels, dtype=torch.bool),
+                                    self.num_class)
+        return {"hist": hist, "voxel_overflow": torch.zeros(
+            (), dtype=torch.int64, device=self.device)}
 
     @torch.no_grad()
     def forward(self, batch: Dict[str, torch.Tensor]):
@@ -223,6 +304,8 @@ class SegTask:
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         """Forward + point re-projection + confusion matrix."""
+        if self.is_range:
+            return self._range_eval_step(batch)
         vb, pyr, logits = self.forward(batch)
         hist = confusion_matrix(self._point_pred(vb, logits),
                                 vb.point_labels, vb.point_valid,
@@ -232,6 +315,9 @@ class SegTask:
 
     @torch.no_grad()
     def predict_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Per-point predictions [B, Np] int32."""
+        """Per-point predictions [B, Np] int32 (a range model's: per pixel,
+        [B, H, W])."""
+        if self.is_range:
+            return self.range_logits(batch).argmax(1).to(torch.int32)
         vb, _, logits = self.forward(batch)
         return self._point_pred(vb, logits).reshape(batch["xyz"].shape[0], -1)

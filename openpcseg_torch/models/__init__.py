@@ -1,18 +1,24 @@
-"""Segmentor registry: MODEL.NAME -> torch module (MinkUNet, SPVCNN and
-Cylinder_TS so far; the JAX package's other segmentors raise
-NotImplementedError naming the ROADMAP.md Queue 1 item that ports each)."""
+"""Segmentor registry: MODEL.NAME -> torch module (MinkUNet, SPVCNN,
+Cylinder_TS and the range-view CENet, FIDNet, RangeNet and SalsaNext so
+far; RPVNet raises NotImplementedError naming the ROADMAP.md Queue 1 item
+that ports it)."""
 from __future__ import annotations
 
 from typing import Any, Dict
 
 from .cylinder3d import Cylinder_TS
 from .minkunet import MinkUNet
+from .range_cenet import CENet
+from .range_fidnet import FIDNet
+from .range_rangenet import RangeNet
+from .range_salsanext import SalsaNext
 from .spvcnn import SPVCNN
 
 SEGMENTORS: Dict[str, Any] = {"MinkUNet": MinkUNet, "SPVCNN": SPVCNN,
-                              "Cylinder_TS": Cylinder_TS}
-_NOT_PORTED = {"RPVNet": 13, "CENet": 14, "FIDNet": 14, "RangeNet": 14,
-               "SalsaNext": 14}
+                              "Cylinder_TS": Cylinder_TS, "CENet": CENet,
+                              "FIDNet": FIDNet, "RangeNet": RangeNet,
+                              "SalsaNext": SalsaNext}
+_NOT_PORTED = {"RPVNet": 13}
 
 
 def build_segmentor(model_cfgs: Dict[str, Any], num_class: int, **kwargs):

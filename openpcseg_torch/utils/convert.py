@@ -1,10 +1,10 @@
-"""Load JAX (flax) MinkUNet, SPVCNN and Cylinder_TS variables into the
-port's models.
+"""Load JAX (flax) MinkUNet, SPVCNN, Cylinder_TS and range-model (CENet,
+FIDNet, RangeNet, SalsaNext) variables into the port's models.
 
 ``jax_params_to_torch(params, batch_stats, model)`` takes the numpy pytrees
 (nested dicts) of ``TrainState.params`` / ``.batch_stats`` and fills every
-parameter and buffer of an ``openpcseg_torch.models.MinkUNet``, ``SPVCNN``
-or ``Cylinder_TS``:
+parameter and buffer of an ``openpcseg_torch.models.MinkUNet``, ``SPVCNN``,
+``Cylinder_TS``, ``CENet``, ``FIDNet``, ``RangeNet`` or ``SalsaNext``:
 
 - a conv ``kernel`` [K*Cin, Cout] becomes the weight [K, Cin, Cout] in
   ``kernel_offsets`` order (layers.py:104-105); 1x1 kernels stay [Cin, Cout];
@@ -16,7 +16,13 @@ or ``Cylinder_TS``:
   [Cin, Cout] is the Linear weight transposed, a conv ``bias`` the
   SparseConv's;
 - blocks 2..n of a stage with n >= 3 live in ``StackedBlocks_j`` with every
-  leaf stacked on axis 0 (layers.py:347-356) and are unstacked here.
+  leaf stacked on axis 0 (layers.py:347-356) and are unstacked here;
+- a range model's 2-D conv kernel [kh, kw, Cin, Cout] (HWIO) becomes the
+  weight [Cout, Cin, kh, kw] (OIHW); RangeNet's transposed conv kernel
+  [1, 4, Cin, Cout] becomes [Cin, Cout, 1, 4] flipped along both spatial
+  axes (flax's ``ConvTranspose`` does not flip its kernel, torch's
+  transposed conv is the adjoint of a correlation, which does); BN scale,
+  bias, mean and var carry across.
 
 It raises if any flax leaf goes unused or any torch tensor stays unfilled.
 Plain numpy + torch: the caller converts jax arrays with ``np.asarray``.
@@ -178,6 +184,94 @@ class _Loader:
             self.dense(model.point_head, (self.next("Dense"),))
 
 
+    # ----------------------------------------------- dense range models --
+
+    def conv2d(self, conv, path: Path) -> None:
+        w = self.take("params", path + ("kernel",), None)
+        self.put(conv.weight, w.transpose(3, 2, 0, 1))
+        if conv.bias is not None:
+            self.put(conv.bias, self.take("params", path + ("bias",), None))
+
+    def conv_transpose2d(self, conv, path: Path) -> None:
+        w = self.take("params", path + ("kernel",), None)
+        self.put(conv.weight, w[::-1, ::-1].transpose(2, 3, 0, 1))
+        self.put(conv.bias, self.take("params", path + ("bias",), None))
+
+    def convs_bns(self, pairs, path: Path = ()) -> None:
+        """(conv, bn or None) pairs in flax's creation order, named
+        Conv_i / ConvTranspose_i and BatchNorm_j under `path`."""
+        counters = defaultdict(int)
+
+        def name(cls):
+            i = counters[cls]
+            counters[cls] += 1
+            return path + (f"{cls}_{i}",)
+        for conv, bn in pairs:
+            if conv is not None:
+                if type(conv).__name__ == "ConvTranspose2d":
+                    self.conv_transpose2d(conv, name("ConvTranspose"))
+                else:
+                    self.conv2d(conv, name("Conv"))
+            if bn is not None:
+                self.bn(bn, name("BatchNorm"))
+
+    def basic_block(self, blk, path: Path) -> None:
+        pairs = [(blk.conv1, blk.bn1), (blk.conv2, blk.bn2)]
+        if blk.downsample is not None:
+            pairs.append((blk.downsample[0], blk.downsample[1]))
+        self.convs_bns(pairs, path)
+
+    def cenet(self, model) -> None:
+        for blk in model.stem:
+            self.convs_bns([(blk.conv, blk.bn)], (self.next("BasicConv2d"),))
+        for stage in model.stages:
+            for blk in stage:
+                self.basic_block(blk, (self.next("BasicBlock"),))
+        for blk in (model.conv_1, model.conv_2):
+            self.convs_bns([(blk.conv, blk.bn)], (self.next("BasicConv2d"),))
+        self.conv2d(model.semantic_output, ("semantic_output",))
+        for i, head in enumerate(model.aux_heads):
+            self.conv2d(head, (f"aux_head{i + 1}",))
+
+    def fidnet(self, model) -> None:
+        pairs = [(b.conv, b.bn) for b in model.stem]
+        for stage in model.stages:
+            for blk in stage:
+                self.basic_block(blk, (self.next("BasicBlock"),))
+        self.convs_bns(pairs + [(b.conv, b.bn) for b in model.head])
+        self.conv2d(model.semantic_output, ("semantic_output",))
+
+    def salsanext(self, model) -> None:
+        bb = model.backbone
+        root = ("SalsaNextBackbone_0",)
+        for i, b in enumerate(bb.stem):
+            self.convs_bns([(b.conv1, None), (b.conv2, b.bn1),
+                            (b.conv3, b.bn2)],
+                           root + (f"ResContextBlock_{i}",))
+        for i, b in enumerate(bb.downs):
+            self.convs_bns([(b.conv1, None), (b.conv2, b.bn1),
+                            (b.conv3, b.bn2), (b.conv4, b.bn3),
+                            (b.conv5, b.bn4)],
+                           root + (f"SalsaResBlock_{i}",))
+        for i, b in enumerate(bb.ups):
+            self.convs_bns([(b.conv1, b.bn1), (b.conv2, b.bn2),
+                            (b.conv3, b.bn3), (b.conv4, b.bn4)],
+                           root + (f"SalsaUpBlock_{i}",))
+        self.conv2d(model.logits, ("logits",))
+
+    def rangenet(self, model) -> None:
+        """Top-level convs, transposed convs and BNs share flax's
+        per-class counters across the encoder and decoder."""
+        pairs = [(model.stem.conv, model.stem.bn)]
+        for stage in list(model.encoder) + list(model.decoder):
+            pairs.append((stage[0].conv, stage[0].bn))
+            for blk in list(stage)[1:]:
+                self.convs_bns([(blk.conv1, blk.bn1), (blk.conv2, blk.bn2)],
+                               (self.next("DarkBasicBlock"),))
+        self.convs_bns(pairs)
+        self.conv2d(model.head, ("head",))
+
+
 def _check(ld) -> None:
     unused = sorted("/".join(k) for k in set(ld.src) - ld.used)
     if unused:
@@ -189,14 +283,17 @@ def _check(ld) -> None:
 
 def jax_params_to_torch(params, batch_stats, model,
                         scan_blocks: bool = True):
-    """Fill `model` (openpcseg_torch MinkUNet, SPVCNN or Cylinder_TS) from
-    flax variables; returns the model. scan_blocks=False matches
-    OPENPCSEG_SCAN_BLOCKS=0 trees. The walk is flax's creation order: for
-    SPVCNN the point MLPs come after the down stages and after up stages
-    1 and 3."""
+    """Fill `model` (openpcseg_torch MinkUNet, SPVCNN, Cylinder_TS, CENet,
+    FIDNet, RangeNet or SalsaNext) from flax variables; returns the model.
+    scan_blocks=False matches OPENPCSEG_SCAN_BLOCKS=0 trees. The walk is
+    flax's creation order: for SPVCNN the point MLPs come after the down
+    stages and after up stages 1 and 3."""
     ld = _Loader(params, batch_stats, model)
-    if type(model).__name__ == "Cylinder_TS":
-        ld.cylinder(model)
+    walk = {"Cylinder_TS": ld.cylinder, "CENet": ld.cenet,
+            "FIDNet": ld.fidnet, "SalsaNext": ld.salsanext,
+            "RangeNet": ld.rangenet}.get(type(model).__name__)
+    if walk is not None:
+        walk(model)
         _check(ld)
         return model
     pts = list(getattr(model, "point_transforms", ()))

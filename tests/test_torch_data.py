@@ -201,7 +201,7 @@ def test_loader_rank_and_unported_views(tree):
     assert tdata.rank_and_world() == (0, 1)
     _, load = tdata.build_dataloader(tcfg, "voxel", 2, num_workers=1)
     assert (load.process_index, load.local_bs) == (0, 2)
-    for modality, ds, item in (("range", "semantickitti", 14),
+    for modality, ds, item in (("range", "nuscenes", 15),
                                ("cylinder", "waymo", 15),
                                ("fusion", "waymo", 15),
                                ("voxel", "waymo", 15)):

@@ -234,7 +234,8 @@ def test_lr_schedule_matches_jax():
         np.testing.assert_allclose(got(s), float(want(s)), rtol=1e-6,
                                    atol=2e-7 * cfg["LR"])
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_lr_schedule(dict(cfg, SCHEDULER="onecycle"), 7, 3)
+        build_lr_schedule(dict(cfg, SCHEDULER="cos_warmup_with_cosdecay"),
+                          7, 3)
 
 
 def test_clip_and_sgd_match_optax(rng):
