@@ -7,9 +7,11 @@ The main paths are the eval and train steps of MinkUNet mk34_cr10 (the
 MODEL and OPTIM blocks of tools/cfgs/voxel/semantic_kitti/
 minkunet_mk34_cr10.yaml), of SPVCNN mk34_cr10 (tools/cfgs/fusion/
 semantic_kitti/spvcnn_mk34_cr10.yaml), of Cylinder3D cy480_cr10
-(tools/cfgs/voxel/semantic_kitti/cylinder_cy480_cr10.yaml) and of the
-range models CENet, FIDNet, RangeNet and SalsaNext (tools/cfgs/range/
-semantic_kitti/*_64x2048.yaml), at full width, with weights drawn
+(tools/cfgs/voxel/semantic_kitti/cylinder_cy480_cr10.yaml), of RPVNet
+mk34_cr17_5 (tools/cfgs/fusion/semantic_kitti/rpvnet_mk34_cr17_5.yaml)
+and of the range models CENet, FIDNet, RangeNet and SalsaNext
+(tools/cfgs/range/semantic_kitti/*_64x2048.yaml), at full width, with
+weights drawn
 from a seeded torch.Generator, on 131,072-point ray-cast scans, computing
 in bfloat16 through eight hand-written CUDA kernels (openpcseg_torch/csrc):
 
@@ -24,13 +26,18 @@ Cylinder3D runs its submanifold convs (3^3 and anisotropic kernels, the
 rows of the 3^3 map) on K1 / K2, its k3 strided convs on the gather-GEMM
 and gather_dw (counted as strided / strided_bwd / strided_dw; JAX runs
 them on XLA), and its refinement gather on K7 over the level-0 p2v table
-(K8 back; the vmean counters).
+(K8 back; the vmean counters). RPVNet adds a float32 range branch (cuDNN,
+TF32) fused with the voxel and point branches at four gates: each range
+map goes to the points by K7 over a 4-corner bilinear table (K8 over its
+transpose back; counters r2p / r2p_bwd), the points to a range map by K8
+over a one-corner pixel table, the sum of a mean (K7 back; p2r /
+p2r_bwd).
 
 The range models run float32 dense convs on cuDNN, no kernel of the port.
 
 Phases, in order (any failure exits non-zero and prints no result line):
   1. the card's name and power limit; TF32 off for matmuls and cuDNN
-     (back to torch's default, TF32 convs, for phase 13);
+     (back to torch's default, TF32 convs, for phases 13 and 14);
   2. build the kernels with nvcc (sm_90a) from the checkout's sources, and
      log ptxas's registers and spills per kernel instance;
   3. kernel phase: the launch configuration of the two gather kernels at
@@ -103,7 +110,21 @@ Phases, in order (any failure exits non-zero and prints no result line):
      JAX reading and floor); the train CLI on its yaml as it stands at
      batch 2 for one epoch, a resumed second, and the infer CLI with
      --save_pred --save_raw_ids;
- 13. range phases, for each of CENet, FIDNet, RangeNet and SalsaNext from
+ 13. RPVNet phases (the yaml as it stands, bf16 voxel branch, its range
+     branch float32 on cuDNN in TF32): serving (as 4, its range fusion's
+     K7 and K8 launched on every request), the eval profile and idle
+     share, its kernel cases on scan SEED's pyramid and range tables
+     (RPV_SUBM, RPV_DOWNS, RPV_UPS, RPV_DEVOX forward and backward, and
+     the range fusion at RPV_R2P / RPV_P2R: each against its plain
+     version, twice, bit for bit, timed, beside its bound and
+     torch.sparse.mm), the count of points whose range tables the card
+     and the CPU build apart (where not 0 the references take the CPU's
+     tables), the eval reference (as 5), training (as 8, every counter of
+     its path on every step), the training reference (as 9, under its own
+     JAX reading, widened for TF32 by twice RPV_TF32_READING), and the
+     train CLI on its yaml at batch 2 for one epoch, a resumed second, and
+     the infer CLI with --save_pred --save_raw_ids;
+ 14. range phases, for each of CENet, FIDNet, RangeNet and SalsaNext from
      its yaml as it stands (64 x 2048, float32, TF32 convs): serving
      (REQUESTS + 1 eval and predict requests on ray-cast scans projected
      with range_project, each re-projected to its points by the KNN:
@@ -111,7 +132,10 @@ Phases, in order (any failure exits non-zero and prints no result line):
      idle share), the reference (numpy weights, seed_range_weights: the
      card's eval logits against the CPU's float32 ones within
      RANGE_REF_TOL, argmax agreement at least RANGE_REF_AGREE, both set
-     before the first card run), training (RANGE_TRAIN_STEPS steps of
+     before the first card run, on the scan as ray-cast and moved into the
+     sensor frame), the training reference (one AdamW + onecycle step,
+     card against CPU float32, under range_train_bounds: twice the CPU
+     emulation of TF32), training (RANGE_TRAIN_STEPS steps of
      the yaml's AdamW + onecycle: finite, the last loss below the first;
      scans/s, one profiled step's device ms, its dense-conv share and
      idle share); then CENet's yaml through the train CLI at batch 2 (an
@@ -360,6 +384,71 @@ PORT_CPU_CYL_BF16_READING = ((2.0116e-5, 0.985820, 0.856317),
                              (3.3754e-5, 0.983987, 0.872928),
                              (1.3639e-5, 0.982681, 0.845566))
 CYL_TRAIN_REF_LOSS_MEAN, CYL_TRAIN_REF = train_ref_rule(JAX_CYL_TRAIN_READING)
+# == the blocks of tools/cfgs/fusion/semantic_kitti/rpvnet_mk34_cr17_5.yaml
+# as it stands: RPVNet's phases (widths 56-448, bf16 voxel branch, float32
+# range branch over the 64 x 2048 image of each scan, golden_run.to_fusion)
+RPV_MODEL_CFG = {
+    "NAME": "RPVNet",
+    "IGNORE_LABEL": 0,
+    "IN_FEATURE_DIM": 5,
+    "BLOCK": "ResBlock",
+    "NUM_LAYER": [2, 3, 4, 6, 2, 2, 2, 2],
+    "PLANES": [32, 32, 64, 128, 256, 256, 128, 96, 96],
+    "cr": 1.75,
+    "DROPOUT_P": 0.0,
+    "LABEL_SMOOTHING": 0.1,
+    "IF_DIST": True,
+}
+RPV_OPTIM_CFG = dict(OPTIM_CFG, BATCH_SIZE_PER_GPU=4)
+RPV_CFGS = {
+    "MODALITY": "fusion",
+    "DATA": {"DATASET": "semantickitti", "VOXEL_SIZE": 0.05},
+    "MODEL": RPV_MODEL_CFG,
+    "TPU": {"POINT_CAP_PER_SCAN": 131072, "VOXEL_CAP_PER_SCAN": 98304},
+}
+RPV_TRAIN_CFGS = dict(RPV_CFGS, OPTIM=RPV_OPTIM_CFG)
+RPV_ENTRY_CFG = "tools/cfgs/fusion/semantic_kitti/rpvnet_mk34_cr17_5.yaml"
+# its range fusion: K7 over the 4-corner bilinear tables (r2p), K8 over
+# their transposes (r2p_bwd), K8 over the pixel tables (p2r, the mean's
+# sum) and K7 over them (p2r_bwd)
+RPV_FWD = FWD_COUNTERS + ("vmean", "r2p", "p2r")
+RPV_NEED = MINK_COUNTERS + SPV_COUNTERS + ("r2p", "r2p_bwd", "p2r",
+                                          "p2r_bwd")
+# the training reference's draws through golden_run.to_fusion (digest with
+# seed_weights(SEED) on RPVNet), JAX's bf16-against-f32 reading of them
+# and the port's CPU one (tests/test_torch_train_ref.py -m slow -k rpvnet)
+RPV_TRAIN_REF_INPUTS = "e2d7102bc343c6c8"
+JAX_RPV_TRAIN_READING = ((7.3699e-05, 0.998842, 0.935502),
+                         (7.7938e-05, 0.998881, 0.935581),
+                         (1.1532e-04, 0.998620, 0.930750),
+                         (7.0292e-05, 0.998722, 0.929631),
+                         (5.8010e-05, 0.998866, 0.933994),
+                         (1.5392e-04, 0.998862, 0.927832),
+                         (5.2325e-05, 0.998874, 0.935461),
+                         (5.7185e-05, 0.998939, 0.937135),
+                         (7.8458e-06, 0.998855, 0.934650),
+                         (7.1232e-05, 0.998893, 0.932115))
+PORT_CPU_RPV_BF16_READING = ((1.8043e-04, 0.998921, 0.929512),
+                             (3.0298e-04, 0.998931, 0.937686),
+                             (1.7158e-04, 0.998646, 0.933110),
+                             (1.7341e-05, 0.998840, 0.929716),
+                             (1.7805e-04, 0.998869, 0.934128),
+                             (1.4060e-04, 0.998806, 0.932669),
+                             (3.0549e-05, 0.998908, 0.936106),
+                             (2.2090e-05, 0.998808, 0.924216),
+                             (1.6435e-04, 0.998700, 0.923186),
+                             (1.1500e-04, 0.998867, 0.935461))
+# the card also runs RPVNet's range convs in TF32 (cuDNN at torch's
+# default), which JAX's reading does not see. RPV_TF32_READING is the CPU
+# emulation of it (python -m openpcseg_torch.cli.range_tf32 --train: the
+# float32 step with every range conv's operands rounded to TF32, forward
+# and backward, against the float32 step, on draws 0-4 of the training
+# reference, the worst of the five per field, on the card machine's CPU
+# before the first card run of the reference): (loss rel, whole-gradient
+# cosine, worst conv cosine). A1's rule widens JAX's rule by twice it:
+# the loss bounds by 2 x its loss rel, the cosine rows and floor by 2 x
+# (1 - its cosines).
+RPV_TF32_READING = (3.4021e-04, 0.99929915, 0.98126717)
 # the training reference of each model: (train config, digest of the draws
 # and seed_weights(SEED), JAX's reading, the port's CPU bf16 reading,
 # report key, log tag)
@@ -372,6 +461,9 @@ TRAIN_REF_MODELS = {
     "Cylinder_TS": (CYL_TRAIN_CFGS, CYL_TRAIN_REF_INPUTS,
                     JAX_CYL_TRAIN_READING, PORT_CPU_CYL_BF16_READING,
                     "cylinder_train_reference", "cyl-train-ref"),
+    "RPVNet": (RPV_TRAIN_CFGS, RPV_TRAIN_REF_INPUTS, JAX_RPV_TRAIN_READING,
+               PORT_CPU_RPV_BF16_READING, "rpvnet_train_reference",
+               "rpv-train-ref"),
 }
 # the least time a call could take (bound_ms): the larger of the bytes it
 # must move (each input read once, each output written once) over the
@@ -421,6 +513,27 @@ KERNELS["K7_devoxelize"]["vmean_counter"] = "vmean_bwd"
 # gather_dw over its k3 strided maps, forward and backward (JAX runs these
 # convs on XLA, not on a Pallas kernel); K7 / K8 its refinement gather over
 # the level-0 p2v table and its backward
+# the counters of each kernel on RPVNet's path: MinkUNet's and SPVCNN's,
+# and K7 / K8 over its range tables (r2p and p2r_bwd are K7, r2p_bwd and
+# p2r K8)
+for _name, _rpv in (("K1_subm_conv", ("subm",)),
+                    ("K2_subm_conv_bwd", ("subm_bwd", "dw")),
+                    ("K3_down_conv", ("down",)), ("K4_up_conv", ("up",)),
+                    ("K5_up_conv_bwd", ("up_bwd",)),
+                    ("K6_down_conv_bwd", ("down_bwd",)),
+                    ("K7_devoxelize", ("devox", "vmean_bwd", "r2p",
+                                       "p2r_bwd")),
+                    ("K8_devoxelize_bwd", ("devox_bwd", "vmean", "r2p_bwd",
+                                           "p2r"))):
+    KERNELS[_name]["rpv_counters"] = _rpv
+# the kernels line's rows of RPVNet's range fusion, each one of K7 / K8
+# over a range table: (kernel, its counter, the label of its cases)
+RANGE_FUSION_ROWS = {
+    "K7_range_to_point": ("K7_devoxelize", "r2p", "rpv r2p"),
+    "K8_range_to_point_bwd": ("K8_devoxelize_bwd", "r2p_bwd", "rpv r2p"),
+    "K8_point_to_range": ("K8_devoxelize_bwd", "p2r", "rpv p2r"),
+    "K7_point_to_range_bwd": ("K7_devoxelize", "p2r_bwd", "rpv p2r"),
+}
 for _name, _cyl in (("K1_subm_conv", ("subm",)),
                     ("K2_subm_conv_bwd", ("subm_bwd", "dw")),
                     ("K3_down_conv", ("strided",)), ("K4_up_conv", ()),
@@ -615,10 +728,12 @@ def case(kernel, label, kern, plain, args, work, zero_rows=None,
                 args=args, work=work, zero_rows=zero_rows, library=library)
 
 
-def kernel_cases(pyr, gen):
+def kernel_cases(pyr, gen, subm=SUBM_PAIRS, downs=DOWNS, ups=UPS,
+                 devox_shapes=DEVOX, tag=""):
     """The forward kernels' cases at main-path shapes: every channel pair
-    the mk34 forward gives each kernel, on the levels where it gives it,
-    with seeded bf16 features (zero on padding rows)."""
+    the mk34 forward gives each kernel (or the shapes given), on the
+    levels where it gives it, with seeded bf16 features (zero on padding
+    rows); each label starts with `tag`."""
     from openpcseg_torch.ops import devox, subm_conv, updown
 
     def up_plain(x, w, km, plan):
@@ -634,31 +749,32 @@ def kernel_cases(pyr, gen):
                 / (k * cin) ** 0.5).to(torch.bfloat16)
 
     cases = []
-    for level, cin, cout in SUBM_PAIRS:
+    for level, cin, cout in subm:
         args = (feats(level, cin), weight(27, cin, cout),
                 pyr.levels[level].subm_kmap)
-        cases.append(case("K1_subm_conv", f"L{level} {cin}->{cout}",
+        cases.append(case("K1_subm_conv", f"{tag}L{level} {cin}->{cout}",
                           subm_conv.subm_conv, subm_conv.subm_conv_plain,
                           args, gemm_work(*args)))
-    for level, c in DOWNS:
+    for level, c in downs:
         args = (feats(level - 1, c), weight(8, c, c),
                 pyr.levels[level].down_kmap)
-        cases.append(case("K3_down_conv", f"L{level - 1}->L{level} {c}->{c}",
+        cases.append(case("K3_down_conv",
+                          f"{tag}L{level - 1}->L{level} {c}->{c}",
                           updown.down_conv, updown.down_conv_plain, args,
                           gemm_work(*args)))
-    for level, cin, cout in UPS:
+    for level, cin, cout in ups:
         plan = pyr.levels[level + 1].parity_plan
         args = (feats(level + 1, cin), weight(8, cin, cout),
                 pyr.levels[level].up_kmap, plan)
-        cases.append(case("K4_up_conv", f"L{level + 1}->L{level} "
+        cases.append(case("K4_up_conv", f"{tag}L{level + 1}->L{level} "
                           f"{cin}->{cout}", updown.up_conv, up_plain, args,
                           parent_work(args[0], args[1], plan),
                           zero_rows=parentless_rows(plan)))
-    for level, c in DEVOX:
+    for level, c in devox_shapes:
         tbl = pyr.devox[level]
         args = (feats(level, c), tbl.idx, tbl.weights)
         m = devox_csr(tbl.idx, tbl.weights, pyr.levels[level].capacity)
-        cases.append(case("K7_devoxelize", f"L{level} C={c}",
+        cases.append(case("K7_devoxelize", f"{tag}L{level} C={c}",
                           devox.devoxelize, devox.devoxelize_plain, args,
                           devox_work(*args),
                           library=sparse_library(m, args[0])))
@@ -795,12 +911,10 @@ def serving_phase(task, report, tag="serve", need=FWD_COUNTERS, key=""):
     first a warm-up: voxel_overflow 0, hist summing to the valid points,
     the counters `need` launched and no plain version on a CUDA tensor;
     the p50 per scan. Report keys start with `key`."""
-    from openpcseg_torch.data.raycast import raycast_batch
     from openpcseg_torch.engine.task import batch_to_device
     from openpcseg_torch.ops import cuda_lib
 
-    scans = [raycast_batch(SEED + 1 + i, 1, cap=N_POINTS)
-             for i in range(REQUESTS + 1)]
+    scans = [scan_for(task.cfgs, SEED + 1 + i) for i in range(REQUESTS + 1)]
     cuda_lib.reset_counts()
     lat = []
     reqs = []
@@ -899,10 +1013,9 @@ def reference_phase(report, cfgs=CFGS, tag="reference", cpu_tables=False):
     """Same seeded weights, 8192-point scan: kernels (bf16) on the card
     against the plain versions (float32) on the CPU; with `cpu_tables`, the
     card's run takes the CPU's tables (tables_from_cpu)."""
-    from openpcseg_torch.data.raycast import raycast_batch
     from openpcseg_torch.engine.task import SegTask, batch_to_device
 
-    scan = raycast_batch(SEED, 1, cap=8192)
+    scan = scan_for(cfgs, SEED, cap=8192)
     logits = {}
     for dev, dt in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
         t = SegTask(cfgs, NUM_CLASS, device=dev, compute_dtype=dt,
@@ -1055,10 +1168,9 @@ def _window(label, prof, report):
 
 
 def profile_phase(task, report, key=""):
-    from openpcseg_torch.data.raycast import raycast_batch
     from openpcseg_torch.engine.task import batch_to_device
 
-    b = batch_to_device(raycast_batch(SEED + 1, 1, cap=N_POINTS), "cuda")
+    b = batch_to_device(scan_for(task.cfgs, SEED + 1), "cuda")
     return step_profile(f"{key}eval_step", lambda: task.eval_step(b), report)
 
 
@@ -1086,8 +1198,12 @@ def _role(family, a, kw=None):
             return "k3 strided dW"
         return ("K2 dW" if idx.shape[0] != 8 else
                 "K6 dW" if a[1] is not None else "K5 dW")
+    # K7 / K8 calls that name their counter (RPVNet's range fusion)
+    counter = a[3 if family == "devox" else 2] if len(a) > (
+        3 if family == "devox" else 2) else (kw or {}).get("counter", family)
     return {"devox": "K7", "devox_bwd": "K8", "vmean": "K8 vmean",
-            "vmean_bwd": "K7 vmean"}[family]
+            "vmean_bwd": "K7 vmean", "r2p": "K7 r2p", "r2p_bwd": "K8 r2p",
+            "p2r": "K8 p2r", "p2r_bwd": "K7 p2r"}[counter]
 
 
 def _kernels_of(family, a):
@@ -1223,13 +1339,15 @@ def step_profile(label, step, report):
     return total
 
 
-def backward_cases(pyr, gen):
+def backward_cases(pyr, gen, subm=SUBM_PAIRS, downs=DOWNS, ups=UPS,
+                   devox_shapes=DEVOX, tag=""):
     """The backward kernels' cases at the shapes the mk34 training step
-    gives them: upstream gradients in float32 (zero on padding rows, as
-    the masked forward leaves them), saved bf16 activations, float32
-    weights. K2, K5 and K6 run whole (dfeats and dW) and each pass alone
-    (labels "... dfeats" and "... dW"), on the operands the whole backward
-    hands it: dout cast to bf16, W^T in bf16."""
+    gives them (or the shapes given): upstream gradients in float32 (zero
+    on padding rows, as the masked forward leaves them), saved bf16
+    activations, float32 weights. K2, K5 and K6 run whole (dfeats and dW)
+    and each pass alone (labels "... dfeats" and "... dW"), on the
+    operands the whole backward hands it: dout cast to bf16, W^T in bf16.
+    Each label starts with `tag`."""
     from openpcseg_torch.ops import devox, subm_conv, updown
     from openpcseg_torch.ops.sparse_conv import _conv_apply
 
@@ -1270,9 +1388,9 @@ def backward_cases(pyr, gen):
                      subm_conv.gather_dw_plain, dw_args, dw_work(*dw_args))]
 
     cases = []
-    for level, cin, cout in SUBM_PAIRS:
+    for level, cin, cout in subm:
         lv = pyr.levels[level]
-        label = f"L{level} {cin}->{cout}"
+        label = f"{tag}L{level} {cin}->{cout}"
         d, x, w = rand(level, cout, f32), rand(level, cin, bf), weight(
             27, cin, cout)
         d16, wt = d.to(bf), w.transpose(1, 2).to(bf).contiguous()
@@ -1286,10 +1404,10 @@ def backward_cases(pyr, gen):
                         lambda d16, wt, km, km_t: gemm_plain(d16, wt, km_t),
                         (d16, wt, km, km.flip(0).contiguous()), gwork,
                         dwargs)
-    for level, c in DOWNS:
+    for level, c in downs:
         fine, coarse = pyr.levels[level - 1], pyr.levels[level]
         plan = coarse.parity_plan
-        label = f"L{level - 1}->L{level} {c}->{c}"
+        label = f"{tag}L{level - 1}->L{level} {c}->{c}"
         d, x, w = rand(level, c, f32), rand(level - 1, c, bf), weight(8, c, c)
         d16, wt = d.to(bf), w.transpose(1, 2).to(bf).contiguous()
         pwork = parent_work(d16, wt, plan)
@@ -1305,9 +1423,9 @@ def backward_cases(pyr, gen):
             lambda d16, wt, uk, plan: gemm_plain(d16, wt, uk),
             (d16, wt, fine.up_kmap, plan), pwork, dwargs,
             zero_rows=parentless_rows(plan))
-    for level, cin, cout in UPS:
+    for level, cin, cout in ups:
         fine, coarse = pyr.levels[level], pyr.levels[level + 1]
-        label = f"L{level + 1}->L{level} {cin}->{cout}"
+        label = f"{tag}L{level + 1}->L{level} {cin}->{cout}"
         d, x, w = rand(level, cout, f32), rand(level + 1, cin, bf), weight(
             8, cin, cout)
         d16, wt = d.to(bf), w.transpose(1, 2).to(bf).contiguous()
@@ -1321,11 +1439,11 @@ def backward_cases(pyr, gen):
             "K5_up_conv_bwd", label,
             lambda d16, wt, dk: subm_conv.gather_gemm(d16, wt, dk, "up_bwd"),
             gemm_plain, (d16, wt, dk), gwork, dwargs)
-    for level, c in DEVOX:
+    for level, c in devox_shapes:
         tbl = pyr.devox[level]
         d = torch.randn(tbl.idx.shape[1], c, device="cuda", generator=gen)
         d = torch.where(pyr.points.valid[:, None], d, 0.0).to(bf)
-        cases.append(case("K8_devoxelize_bwd", f"L{level} C={c}",
+        cases.append(case("K8_devoxelize_bwd", f"{tag}L{level} C={c}",
                           devox.devoxelize_bwd, devox.devoxelize_bwd_plain,
                           (d, tbl), devox_bwd_work(d, tbl),
                           library=sparse_library(
@@ -1414,7 +1532,6 @@ def training_phase(report, cfgs=TRAIN_CFGS, tag="train", need=None,
     the counters `need` (by default every one but SPVCNN's) launched on
     every step; then one profiled step for the device idle share. Report
     keys start with `key`."""
-    from openpcseg_torch.data.raycast import raycast_batch
     from openpcseg_torch.engine.task import SegTask, batch_to_device
     from openpcseg_torch.ops import cuda_lib
 
@@ -1422,7 +1539,7 @@ def training_phase(report, cfgs=TRAIN_CFGS, tag="train", need=None,
     task = SegTask(cfgs, NUM_CLASS, device="cuda",
                    compute_dtype=torch.bfloat16, seed=SEED,
                    iters_per_epoch=ITERS_PER_EPOCH)
-    scan = raycast_batch(SEED + 1, 1, cap=N_POINTS)
+    scan = scan_for(cfgs, SEED + 1)
     steps, totals = [], dict.fromkeys(cuda_lib.COUNTERS, 0)
     for i in range(TRAIN_STEPS):
         cuda_lib.reset_counts()
@@ -1488,15 +1605,58 @@ def train_ref_draws():
     return draws
 
 
+def scan_for(cfgs, seed, cap=N_POINTS):
+    """The ray-cast scan of `seed` as `cfgs`'s model reads it (numpy, a
+    batch of 1): RPVNet's a fusion batch (golden_run.to_fusion: the 64 x
+    2048 range image and each point's pxpy), every other model's the scan
+    as ray-cast."""
+    from openpcseg_torch.cli.golden_run import to_fusion
+    from openpcseg_torch.data.raycast import raycast_batch
+
+    b = raycast_batch(seed, 1, cap=cap)
+    return to_fusion(b, seed) if cfgs["MODEL"]["NAME"] == "RPVNet" else b
+
+
+def rpv_train_ref_draws():
+    """RPVNet's training-reference inputs: the 8192-point scan of SEED as
+    its fusion batch (scan_for), then TRAIN_REF_DRAWS - 1 copies whose
+    point features and range image are scaled by 1 + TRAIN_REF_NOISE *
+    N(0, 1) (seeded); the points, their pxpy and so every table stay
+    the same."""
+    scan = scan_for(RPV_CFGS, SEED, cap=8192)
+    rng = np.random.default_rng(SEED)
+    draws = [scan]
+    for _ in range(TRAIN_REF_DRAWS - 1):
+        d = dict(scan)
+        for k in ("feats", "range_image"):
+            noise = 1 + TRAIN_REF_NOISE * rng.standard_normal(scan[k].shape)
+            d[k] = (scan[k] * noise).astype(np.float32)
+        draws.append(d)
+    return draws
+
+
 def seed_weights(model, seed):
     """Overwrite `model`'s conv, classifier and point-MLP (every other
-    Linear) weights (in that order) with draws of numpy's
+    Linear) weights, then its 2-D convs' (RPVNet's range branch), in that
+    order, with draws of numpy's
     generator seeded with `seed`, at the scale of the model's own
     initializer (a unit normal truncated to [-2, 2], times sqrt(1 / fan-in)
     over that normal's std): the same weights on every machine, whatever
-    torch's own initializer draws there. Norm layers keep 1 and 0."""
+    torch's own initializer draws there. Norm layers keep 1 and 0. The
+    weights of a (model layout, seed) are drawn once and kept
+    (_SEEDED): the references seed the same model again on each draw."""
     from openpcseg_torch.models.layers import SparseConv
 
+    names = {id(p): n for n, p in model.named_parameters()}
+    key = (seed, tuple((n, tuple(p.shape)) for n, p in
+                       model.named_parameters()))
+    if key in _SEEDED:
+        params = dict(model.named_parameters())
+        with torch.no_grad():
+            for n, v in _SEEDED[key].items():
+                params[n].copy_(v)
+        return
+    drawn = _SEEDED.setdefault(key, {})
     rng = np.random.default_rng(seed)
 
     def trunc(shape, fan_in):
@@ -1507,16 +1667,26 @@ def seed_weights(model, seed):
             bad = np.abs(z) > 2
         return torch.from_numpy(z * (1.0 / fan_in) ** 0.5
                                 / 0.87962566103423978)
+
+    def put(w, value):
+        w.copy_(value)
+        drawn[names[id(w)]] = w.detach().cpu().clone()
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, SparseConv):
-                m.weight.copy_(trunc(m.weight.shape, m.fan_in))
+                put(m.weight, trunc(m.weight.shape, m.fan_in))
         head = getattr(model, "classifier", None)
         if head is not None:
-            head.weight.copy_(trunc(head.weight.shape, head.weight.shape[1]))
+            put(head.weight, trunc(head.weight.shape, head.weight.shape[1]))
         for m in model.modules():     # SPVCNN's and Cylinder3D's Linears
             if isinstance(m, torch.nn.Linear) and m is not head:
-                m.weight.copy_(trunc(m.weight.shape, m.weight.shape[1]))
+                put(m.weight, trunc(m.weight.shape, m.weight.shape[1]))
+        for m in model.modules():     # RPVNet's range convs
+            if isinstance(m, torch.nn.Conv2d):
+                put(m.weight, trunc(m.weight.shape, m.weight[0].numel()))
+
+
+_SEEDED: dict = {}
 
 
 def inputs_digest(batches, model) -> str:
@@ -1554,13 +1724,14 @@ def step_against_cpu(cfgs, batch, weights_seed=None, cpu_tables=False,
             tables_from_cpu(t, cfgs, **task_kw)
         if weights_seed is not None:
             seed_weights(t.model, weights_seed)
+        no_dropout(t.model)
         m = t.train_step(batch_to_device(batch, dev))
         loss[tag] = float(m["loss"])
         # the clipped gradients stay in .grad; a cosine ignores the scale
         grads[tag] = {n: p.grad.double().cpu().reshape(-1)
                       for n, p in t.model.named_parameters()}
         convs = [n + ".weight" for n, mod in t.model.named_modules()
-                 if isinstance(mod, SparseConv)]
+                 if isinstance(mod, (SparseConv, torch.nn.Conv2d))]
         secs[tag] = time.perf_counter() - t0
         del t
 
@@ -1596,6 +1767,16 @@ def hold_step(tag, reading, ref):
     return misses
 
 
+def tf32_widened(loss_mean, ref, floor, reading):
+    """A model's rule (train_ref_rule's loss bound and cosine rows, and
+    train_ref_floor) widened for TF32 convs by twice a TF32 reading (loss
+    rel, whole-gradient cosine, worst conv cosine): the loss bounds up by
+    2 x its loss rel, the cosines down by 2 x (1 - its cosine)."""
+    dl, da, dc = 2 * reading[0], 2 * (1 - reading[1]), 2 * (1 - reading[2])
+    return (loss_mean + dl, tuple((a - da, c - dc) for a, c in ref),
+            (floor[0] + dl, floor[1] - da, floor[2] - dc))
+
+
 def train_reference_phase(report, model="MinkUNet", cpu_tables=False):
     """One train_step of `model` from the weights seed_weights(SEED) on each
     of the draws of train_ref_draws: GPU (bf16, kernels) against CPU
@@ -1610,7 +1791,12 @@ def train_reference_phase(report, model="MinkUNet", cpu_tables=False):
         model]
     loss_mean, ref = train_ref_rule(jax_reading)
     floor = train_ref_floor(jax_reading)
-    draws = train_ref_draws()
+    if model == "RPVNet":    # its range convs run TF32 on the card
+        loss_mean, ref, floor = tf32_widened(loss_mean, ref, floor,
+                                             RPV_TF32_READING)
+        draws = rpv_train_ref_draws()
+    else:
+        draws = train_ref_draws()
     net = SegTask(cfgs, NUM_CLASS, device="cpu",
                   voxel_cap_per_scan=8192).model
     seed_weights(net, SEED)
@@ -2169,6 +2355,249 @@ def cylinder_phases(report, tmp, tree):
     return rows, launches, cylinder_entry_phase(report, tmp, tree)
 
 
+# == RPVNet mk34_cr17_5 =====================================================
+# kernel cases at its shapes on scan SEED's pyramid: submanifold convs the
+# mk34 cases never ran (the 5-wide stem, 56, the first block of stage 4,
+# the 672 = 448 + 224 concatenation of up stage 0), its widest down conv
+# (k2 convs keep their width) and its two widest up convs, the voxel
+# devoxelize at 448 / 224, and the range fusion over its tables: (scale of
+# the 64 x 2048 image, C) of each gate's range map (K7 over the bilinear
+# table, K8 over its transpose) and each point-to-range mean (K8 over the
+# pixel table, K7 back), float32
+RPV_SUBM = [(0, 5, 56), (0, 56, 56), (4, 224, 448), (3, 672, 448)]
+RPV_DOWNS = [(4, 224)]
+RPV_UPS = [(3, 448, 448), (2, 448, 224)]
+RPV_DEVOX = [(4, 448), (2, 224)]
+RPV_R2P = [(1, 56), (16, 448), (4, 224), (1, 168)]
+RPV_P2R = [(1, 56), (16, 448), (4, 224)]
+
+
+def no_dropout(model):
+    """p = 0 for the dropout of every block that holds its rate as `p`
+    (the range models' and RPVNet's range blocks): the card's and the
+    CPU's generators draw different masks, so a step compared across them
+    runs without."""
+    for m in model.modules():
+        if isinstance(getattr(m, "p", None), float):
+            m.p = 0.0
+
+
+def rpv_range_cases(pyr, gen):
+    """RPVNet's range fusion at the shapes its train step gives it, on the
+    range tables of scan SEED: K7 over each bilinear table (4 corners) of
+    a float32 range map and K8 over its transpose of a float32 point
+    gradient; K8 over each pixel table of float32 point features (the
+    mean's sum) and K7 over it of a pixel gradient (the mean's backward);
+    the library call torch.sparse.mm over the same table as a CSR."""
+    from functools import partial
+
+    from openpcseg_torch.ops import devox
+
+    valid = pyr.points.valid
+    n = valid.shape[0]
+
+    def rand(rows, c, keep=None):
+        x = torch.randn(rows, c, device="cuda", generator=gen)
+        return x if keep is None else torch.where(keep[:, None], x, 0.0)
+
+    cases = []
+    for scale, c in RPV_R2P:
+        h, w = RANGE_H // scale, RANGE_W // scale
+        tbl = pyr.range[h, w].bilinear
+        fmap, d = rand(tbl.num_voxels, c), rand(n, c, valid)
+        label = f"rpv r2p {h}x{w} C={c}"
+        cases.append(case(
+            "K7_devoxelize", label, partial(devox.devoxelize, counter="r2p"),
+            partial(devox.devoxelize_plain, counter="r2p"),
+            (fmap, tbl.idx, tbl.weights), devox_work(fmap, tbl.idx,
+                                                     tbl.weights),
+            library=sparse_library(devox_csr(tbl.idx, tbl.weights,
+                                             tbl.num_voxels), fmap)))
+        cases.append(case(
+            "K8_devoxelize_bwd", label + " bwd",
+            partial(devox.devoxelize_bwd, counter="r2p_bwd"),
+            partial(devox.devoxelize_bwd_plain, counter="r2p_bwd"),
+            (d, tbl), devox_bwd_work(d, tbl),
+            library=sparse_library(devox_t_csr(tbl, n), d)))
+    for scale, c in RPV_P2R:
+        h, w = RANGE_H // scale, RANGE_W // scale
+        tbl = pyr.range[h, w].pixel
+        z, dy = rand(n, c, valid), rand(tbl.num_voxels, c)
+        label = f"rpv p2r {h}x{w} C={c}"
+        cases.append(case(
+            "K8_devoxelize_bwd", label, partial(devox.voxel_sum,
+                                                counter="p2r"),
+            partial(devox.voxel_sum_plain, counter="p2r"), (z, tbl),
+            sum_work(z, tbl), library=sparse_library(devox_t_csr(tbl, n),
+                                                     z)))
+        cases.append(case(
+            "K7_devoxelize", label + " bwd",
+            partial(devox.point_gather, counter="p2r_bwd"),
+            partial(devox.point_gather_plain, counter="p2r_bwd"),
+            (dy, tbl), gather_work(dy, tbl),
+            library=sparse_library(devox_csr(tbl.idx, tbl.weights,
+                                             tbl.num_voxels), dy)))
+    return cases
+
+
+def rpv_tables_moved(scan, cap):
+    """RPVNet's range tables of the numpy fusion `scan` built on the card
+    and on the CPU (voxelize, each voxel's pxpy, the tables): the points
+    whose pixel or bilinear corners differ, summed over the resolutions,
+    and the largest weight difference."""
+    from openpcseg_torch.engine.task import SegTask, batch_to_device
+
+    tables = {}
+    for dev in ("cuda", "cpu"):
+        t = SegTask(RPV_CFGS, NUM_CLASS, device=dev,
+                    voxel_cap_per_scan=cap, seed=SEED)
+        tables[dev] = {k: to_device(v, "cpu") for k, v in t.preprocess(
+            batch_to_device(scan, dev))[1].range.items()}
+        del t
+    moved, werr = 0, 0.0
+    for k, g in tables["cuda"].items():
+        r = tables["cpu"][k]
+        moved += int(((g.bilinear.idx != r.bilinear.idx).any(0)
+                      | (g.pixel.idx != r.pixel.idx).any(0)).sum())
+        werr = max(werr, float((g.bilinear.weights - r.bilinear.weights)
+                               .abs().max()))
+    return moved, werr
+
+
+def rpvnet_entry_phase(report, tmp, tree):
+    """The train CLI on the RPVNet yaml as it stands (fusion view, full
+    width, cap 98304, bf16, TF32 range convs) at batch ENTRY_BATCH for one
+    epoch over `tree`, again to two (it must resume), then the infer CLI
+    with --save_pred --save_raw_ids; every counter of its path read over
+    the phase."""
+    from openpcseg_torch.cli import infer, train
+    from openpcseg_torch.data.semantickitti_meta import LEARNING_MAP_INV_LUT
+    from openpcseg_torch.ops import cuda_lib
+
+    preds = Path(tmp) / "rpv_preds"
+    argv = ["--cfg_file", str(ROOT / RPV_ENTRY_CFG), "--log_dir",
+            f"{tmp}/rpv_logs", "--extra_tag", "chip_smoke", "--batch_size",
+            str(ENTRY_BATCH), "--log_interval", "1"]
+    sets = ["--set", "DATA.DATA_PATH", tree]
+    cuda_lib.reset_counts()
+    t0 = time.perf_counter()
+    for epochs in (1, 2):
+        if train.main(argv + ["--epochs", str(epochs)] + sets) != 0:
+            raise SystemExit(f"RPVNet entry point: train --epochs {epochs} "
+                             "failed")
+    if infer.main(argv + ["--save_pred", "--save_raw_ids"] + sets
+                  + ["DATA.OUTPUT_DIR", str(preds)]) != 0:
+        raise SystemExit("RPVNet entry point: infer failed")
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    plain_on_cuda = dict(cuda_lib.PLAIN_ON_CUDA)
+    logs, steps, evals, ckps = _run_logs(f"{tmp}/rpv_logs")
+    legal = set(LEARNING_MAP_INV_LUT.tolist())
+    dumped = []
+    for f in sorted(preds.glob("sequences/08/predictions/*.label")):
+        ids = np.fromfile(f, dtype=np.uint32)
+        scan = Path(tree, "08", "velodyne", f.stem + ".bin")
+        dumped.append(dict(file=f.name, ids=len(ids),
+                           points=scan.stat().st_size // 16,
+                           legal=set(np.unique(ids).tolist()) <= legal))
+    step_ms = [r["step_time"] * 1e3 for r in steps]
+    miou = evals[-1]["val_miou"] if evals else float("nan")
+    log(f"[rpv-entry] train CLI on {RPV_ENTRY_CFG}, batch {ENTRY_BATCH}: "
+        f"step ms {', '.join(f'{t:.1f}' for t in step_ms)}, val mIoU "
+        f"{miou:.2f}; {wall:.1f} s for train, resume and infer; dumps "
+        f"{dumped}; launches {launches}")
+    report["rpvnet_entry_point"] = dict(
+        steps=steps, evals=evals, checkpoints=ckps, dumped=dumped,
+        val_miou=miou, wall_s=wall, launches=launches,
+        plain_on_cuda=plain_on_cuda)
+    faults = []
+    if "resumed from epoch 0" not in logs:
+        faults.append("the second train call did not resume from epoch 0")
+    n_steps = ENTRY_SCANS[0] // ENTRY_BATCH * 2
+    if [r["step"] for r in steps] != list(range(1, n_steps + 1)) or not all(
+            np.isfinite(r["loss"]) for r in steps):
+        faults.append(f"train steps {steps}")
+    if ckps != ["0.pt", "1.pt"] or len(evals) != 3:
+        faults.append(f"checkpoints {ckps}, {len(evals)} evals (want 0.pt, "
+                      "1.pt and 3: one per epoch, one by infer)")
+    if any(r["voxel_overflow"] for r in steps) or any(
+            r["val_voxel_overflow"] for r in evals):
+        faults.append("voxel_overflow > 0 in metrics.jsonl")
+    if len(dumped) != ENTRY_SCANS[1] or not all(
+            d["ids"] == d["points"] and d["legal"] for d in dumped):
+        faults.append(f"the --save_raw_ids dump is wrong: {dumped}")
+    missing = [k for k in RPV_NEED if launches[k] == 0]
+    if missing or any(plain_on_cuda.values()):
+        faults.append(f"kernels never launched {missing}, or a plain version "
+                      f"ran on the card {plain_on_cuda}")
+    if faults:
+        raise SystemExit("RPVNet entry-point phase: " + "; ".join(faults))
+    return launches
+
+
+def rpvnet_phases(report, tmp, tree, cudnn_tf32):
+    """RPVNet mk34_cr17_5 on the card, its range convs on cuDNN at torch's
+    default precision `cudnn_tf32` (TF32, as the CLIs run them): serving
+    (every forward counter of its path on every request), the eval profile
+    and idle share, its kernel cases on scan SEED's pyramid and range
+    tables, the count of the points whose range tables the card and the
+    CPU build apart (where not 0 the references take the CPU's tables),
+    the eval reference, training (every counter of its path on every
+    step), the training reference over its draws under its own JAX reading
+    widened for TF32, and the entry points. Returns the cases, the
+    launches of serving and training, and those of the entry phase."""
+    from openpcseg_torch.engine.task import SegTask, batch_to_device
+
+    t0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    task = SegTask(RPV_CFGS, NUM_CLASS, device="cuda",
+                   compute_dtype=torch.bfloat16, seed=SEED)
+    log(f"[rpv-serve] RPVNet from {RPV_ENTRY_CFG}: "
+        f"{sum(p.numel() for p in task.model.parameters())} parameters; "
+        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} for its range "
+        f"branch")
+    launches = serving_phase(task, report, "rpv-serve", RPV_FWD, "rpvnet_")
+    eval_ms = profile_phase(task, report, "rpvnet_")
+    idle = 1.0 - eval_ms / report["rpvnet_p50_ms"]
+    log(f"[profile] rpvnet_eval_step device idle share {idle:.4f} (device "
+        f"{eval_ms:.3f} ms of the {report['rpvnet_p50_ms']:.3f} ms p50)")
+    report["rpvnet_eval_idle_share"] = idle
+    _, pyr = task.preprocess(batch_to_device(scan_for(RPV_CFGS, SEED),
+                                             "cuda"))
+    occ = {f"{h}x{w}": int((t.pixel.t_ptr.diff() > 0).sum())
+           for (h, w), t in pyr.range.items()}
+    log(f"[rpv-kernels] pyramid of scan {SEED}: voxels per level "
+        f"{pyr.level_counts.tolist()}, caps {task.caps}; pixels holding a "
+        f"voxel per range resolution {occ}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    shapes = (RPV_SUBM, RPV_DOWNS, RPV_UPS, RPV_DEVOX, "rpv ")
+    rows = check_cases(kernel_cases(pyr, gen, *shapes)
+                       + backward_cases(pyr, gen, *shapes)
+                       + rpv_range_cases(pyr, gen), "rpv-kernels")
+    report["rpvnet_cases"] = rows
+    del task, pyr
+    moved, werr = rpv_tables_moved(scan_for(RPV_CFGS, SEED, cap=8192), 8192)
+    moved_full, werr_full = rpv_tables_moved(scan_for(RPV_CFGS, SEED),
+                                             98304)
+    log(f"[rpvnet-reference] points whose range tables the card and the CPU "
+        f"build apart: {moved} of the 8192-point scan (largest weight "
+        f"difference {werr:.3e}), {moved_full} of scan {SEED} "
+        f"({werr_full:.3e})" + ("; the card's reference runs take the "
+                                "CPU's tables" if moved else ""))
+    report.update(rpvnet_tables_moved=moved, rpvnet_tables_moved_full=(
+        moved_full), rpvnet_table_weight_err=max(werr, werr_full))
+    reference_phase(report, RPV_CFGS, "rpvnet_reference", moved > 0)
+    train = training_phase(report, RPV_TRAIN_CFGS, "rpv-train", RPV_NEED,
+                           "rpvnet_")
+    launches.update({k: v for k, v in train.items() if k not in RPV_FWD})
+    train_reference_phase(report, "RPVNet", moved > 0)
+    entry = rpvnet_entry_phase(report, tmp, tree)
+    torch.backends.cudnn.allow_tf32 = False
+    report["rpvnet_phases_s"] = time.perf_counter() - t0
+    log(f"[rpvnet] the RPVNet phases took {report['rpvnet_phases_s']:.1f} s")
+    return rows, launches, entry
+
+
 # == the range-view models: each yaml of tools/cfgs/range/semantic_kitti/
 # as it stands (MODEL and OPTIM: AdamW + onecycle), full width, the 64 x
 # 2048 image, float32 as in JAX. Their dense convs run on cuDNN at
@@ -2189,6 +2618,42 @@ RANGE_TRAIN_STEPS = 10
 # and the disagreement that error would bring (PERF.md, PR 10)
 RANGE_REF_TOL = 1e-2
 RANGE_REF_AGREE = 0.985
+# the ray-cast scans put the sensor at z = SENSOR_Z (data/raycast.py); the
+# reference runs on the scan as the golden runs see it and again moved
+# into the sensor frame (z - SENSOR_Z), where range_project's image is no
+# longer degenerate
+SENSOR_Z = 1.8
+# one AdamW + onecycle train step per model, the card (TF32 convs) against
+# the CPU (float32), from seed_range_weights(SEED) on scan SEED, dropout
+# off on both: (|loss_card - loss_cpu| / |loss_cpu|, whole-gradient
+# cosine, the worst cosine over the gradient tensors held, and |p_card -
+# p_cpu| / |p_cpu - p_0| of the parameters after the step). A tensor is
+# held where its float32 gradient's norm is at least RANGE_GRAD_FLOOR of
+# the largest tensor's (a bias that a BN cancels has a gradient of
+# rounding noise, whose cosine says nothing). Each bound is twice the CPU
+# emulation of TF32 (python -m openpcseg_torch.cli.range_tf32 --train: the
+# float32 step with every conv's operands, forward and both backward
+# products, rounded to TF32, against the float32 step): the loss rel and
+# the update rel times 2, the cosines 1 - 2 (1 - emulated). The emulation
+# ran on the card machine's CPU before the first card run of this check,
+# on five draws (the scan, then four copies whose continuous channels are
+# scaled by 1 + 1e-3 N(0, 1)), one draw of TF32's rounding each: the loss
+# rel of one draw ranges over an order of magnitude (CENet 1.4e-6 to
+# 2.5e-5), so RANGE_TF32_TRAIN keeps the worst of the five per field.
+RANGE_GRAD_FLOOR = 1e-3
+RANGE_TF32_TRAIN = {"CENet": (2.5134e-05, 0.99101122, 0.97696833, 0.28984),
+                    "FIDNet": (1.5317e-04, 0.98716202, 0.96925428, 0.37936),
+                    "RangeNet": (4.7350e-05, 0.99991492, 0.95764229,
+                                 0.29245),
+                    "SalsaNext": (2.1611e-04, 0.98120573, 0.92807881,
+                                  0.50188)}
+
+
+def range_train_bounds(name):
+    """(loss rel, whole cosine, worst held cosine, update rel) bounds of
+    `name`'s card training reference: twice its TF32 emulation."""
+    rel, cos_all, cos_worst, upd = RANGE_TF32_TRAIN[name]
+    return 2 * rel, 1 - 2 * (1 - cos_all), 1 - 2 * (1 - cos_worst), 2 * upd
 RANGE_ENTRY = "CENet"    # aux heads and the dice loss: the most code
 # profiler kernel names of the dense convs: cuDNN's and CUTLASS's kernels,
 # their implicit GEMMs and cuDNN's NCHW <-> NHWC layout transposes; every
@@ -2207,19 +2672,21 @@ def range_cfgs(name):
     return cfgs
 
 
-def range_request(seed, n_points=N_POINTS):
+def range_request(seed, n_points=N_POINTS, z_shift=0.0):
     """The ray-cast scan of `seed` as the range eval view gives it: its
-    valid points projected to the 64 x 2048 image (range_project +
-    pack_scan_tensor) and the points themselves (p_label, p_px, p_py,
-    p_range over n_points, p_valid): a numpy batch of 1."""
+    valid points (moved down by `z_shift`) projected to the 64 x 2048
+    image (range_project + pack_scan_tensor) and the points themselves
+    (p_label, p_px, p_py, p_range over n_points, p_valid): a numpy batch
+    of 1."""
     from openpcseg_torch.data.range_view import pack_scan_tensor, range_project
     from openpcseg_torch.data.raycast import raycast_batch
 
     b = raycast_batch(seed, 1, cap=n_points)
     v = b["valid"][0]
     n = int(v.sum())
-    s = range_project(b["xyz"][0][v], b["feats"][0][v, 3],
-                      b["labels"][0][v], RANGE_H, RANGE_W)
+    xyz = b["xyz"][0][v] - np.float32([0.0, 0.0, z_shift])
+    s = range_project(xyz, b["feats"][0][v, 3], b["labels"][0][v], RANGE_H,
+                      RANGE_W)
     scan, label, mask = pack_scan_tensor(s)
     pts = {"p_label": np.full(n_points, -1, np.int32),
            "p_px": np.zeros(n_points, np.int32),
@@ -2322,32 +2789,116 @@ def range_serving(task, name, report, key):
 
 
 def range_reference(name, cfgs, report, key):
-    """seed_range_weights(SEED) on scan SEED: the card's eval logits
-    against the CPU's float32 ones, under RANGE_REF_TOL and
-    RANGE_REF_AGREE."""
+    """seed_range_weights(SEED) on scan SEED, as ray-cast and moved into
+    the sensor frame: the card's eval logits against the CPU's float32
+    ones, under RANGE_REF_TOL and RANGE_REF_AGREE, with the pixels each
+    image holds."""
     from openpcseg_torch.engine.task import SegTask, batch_to_device
 
-    b = range_request(SEED)
-    logits, secs = {}, {}
+    nets = {}
     for dev in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        t = SegTask(cfgs, NUM_CLASS, device=dev, seed=SEED)
-        seed_range_weights(t.model, SEED)
-        logits[dev] = t.range_logits(batch_to_device(b, dev)).cpu()
-        secs[dev] = time.perf_counter() - t0
-    g, r = logits["cuda"], logits["cpu"]
-    err = float((g - r).abs().max() / r.abs().max())
-    agree = float((g.argmax(1) == r.argmax(1)).float().mean())
-    finite = bool(torch.isfinite(g).all())
-    log(f"[{key}reference] card (TF32 convs) vs CPU float32 eval logits "
-        f"{tuple(g.shape)}: finite {finite}, max|diff|/max|ref| {err:.3e} "
-        f"(tolerance {RANGE_REF_TOL}), argmax agreement {agree:.5f} (at "
-        f"least {RANGE_REF_AGREE}); CPU {secs['cpu']:.1f} s")
-    report[f"{key}reference"] = dict(rel_max_err=err, argmax_agree=agree,
-                                     cpu_s=secs["cpu"])
-    if not finite or err > RANGE_REF_TOL or agree < RANGE_REF_AGREE:
+        nets[dev] = SegTask(cfgs, NUM_CLASS, device=dev, seed=SEED)
+        seed_range_weights(nets[dev].model, SEED)
+    misses = []
+    for case_key, z in (("reference", 0.0),
+                        ("reference_sensor_frame", SENSOR_Z)):
+        b = range_request(SEED, z_shift=z)
+        logits, secs = {}, {}
+        for dev, t in nets.items():
+            t0 = time.perf_counter()
+            logits[dev] = t.range_logits(batch_to_device(b, dev)).cpu()
+            secs[dev] = time.perf_counter() - t0
+        g, r = logits["cuda"], logits["cpu"]
+        err = float((g - r).abs().max() / r.abs().max())
+        agree = float((g.argmax(1) == r.argmax(1)).float().mean())
+        finite = bool(torch.isfinite(g).all())
+        pixels = int(b["mask"].sum())
+        log(f"[{key}{case_key}] z - {z}: {pixels} of {RANGE_H * RANGE_W} "
+            f"pixels hold a point; card (TF32 convs) vs CPU float32 eval "
+            f"logits {tuple(g.shape)}: finite {finite}, max|diff|/max|ref| "
+            f"{err:.3e} (tolerance {RANGE_REF_TOL}), argmax agreement "
+            f"{agree:.5f} (at least {RANGE_REF_AGREE}); CPU "
+            f"{secs['cpu']:.1f} s")
+        report[f"{key}{case_key}"] = dict(rel_max_err=err, pixels=pixels,
+                                          argmax_agree=agree,
+                                          cpu_s=secs["cpu"])
+        if not finite or err > RANGE_REF_TOL or agree < RANGE_REF_AGREE:
+            misses.append(case_key)
+    if misses:
         raise SystemExit(f"{name} reference: the card's logits disagree "
-                         "with the CPU float32 reference")
+                         f"with the CPU float32 reference: {misses}")
+
+
+def range_step(cfgs, batch, dev):
+    """One train step of seed_range_weights(SEED) on `dev`, dropout off:
+    (loss, {name: float64 gradient}, {name: float64 parameter before},
+    {name: float64 parameter after})."""
+    from openpcseg_torch.engine.task import SegTask, batch_to_device
+
+    t = SegTask(cfgs, NUM_CLASS, device=dev, seed=SEED,
+                iters_per_epoch=ITERS_PER_EPOCH)
+    seed_range_weights(t.model, SEED)
+    no_dropout(t.model)
+
+    def named(attr):
+        return {n: getattr(p, attr).detach().double().cpu().reshape(-1)
+                for n, p in t.model.named_parameters()}
+    before = named("data")
+    loss = float(t.train_step(batch_to_device(batch, dev))["loss"])
+    return loss, named("grad"), before, named("data")
+
+
+def range_step_reading(run, ref):
+    """(loss rel, whole-gradient cosine, worst cosine over the held
+    tensors, update rel, the worst tensor) of a step against the float32
+    reference step `ref`, each a range_step result."""
+    def cos(a, b):
+        return float(a @ b / (a.norm() * b.norm()).clamp(min=1e-300))
+    loss, g, _, after = run
+    rloss, rg, before, rafter = ref
+    top = max(float(v.norm()) for v in rg.values())
+    held = {n: cos(g[n], rg[n]) for n in rg
+            if float(rg[n].norm()) >= RANGE_GRAD_FLOOR * top}
+    worst = min(held, key=held.get)
+    flat = (torch.cat(list(after.values())), torch.cat(list(rafter.values())),
+            torch.cat(list(before.values())))
+    return (abs(loss - rloss) / abs(rloss),
+            cos(torch.cat([g[n] for n in rg]), torch.cat(list(rg.values()))),
+            held[worst],
+            float((flat[0] - flat[1]).norm() / (flat[1] - flat[2]).norm()),
+            worst)
+
+
+def range_train_reference(name, cfgs, report, key):
+    """One AdamW + onecycle step of seed_range_weights(SEED) on scan SEED,
+    the card (TF32 convs) against the CPU (float32), dropout off on both,
+    held to range_train_bounds(name)."""
+    req = range_request(SEED)
+    batch = {k: req[k] for k in ("scan", "label", "mask")}
+    t0 = time.perf_counter()
+    card = range_step(cfgs, batch, "cuda")
+    t1 = time.perf_counter()
+    cpu = range_step(cfgs, batch, "cpu")
+    t2 = time.perf_counter()
+    got = range_step_reading(card, cpu)
+    bounds = range_train_bounds(name)
+    names = ("loss rel", "whole-gradient cosine", "worst tensor cosine",
+             "update rel")
+    misses = [f"{n} {v:.4e} beyond {b:.4e}" for n, v, b, up in
+              zip(names, got, bounds, (True, False, False, True))
+              if not np.isfinite(v) or (v > b if up else v < b)]
+    log(f"[{key}train-ref] card (TF32) vs CPU float32 AdamW step: loss "
+        f"{card[0]:.6f} vs {cpu[0]:.6f} (rel {got[0]:.4e}, bound "
+        f"{bounds[0]:.4e}); whole-gradient cosine {got[1]:.6f} (>= "
+        f"{bounds[1]:.6f}); worst tensor cosine {got[2]:.6f} at {got[4]} "
+        f"(>= {bounds[2]:.6f}); update rel {got[3]:.4e} (bound "
+        f"{bounds[3]:.4e}); card {t1 - t0:.1f} s, CPU {t2 - t1:.1f} s"
+        + (f"; MISS: {'; '.join(misses)}" if misses else ""))
+    report[f"{key}train_reference"] = dict(
+        loss_rel=got[0], cos_all=got[1], cos_worst=got[2], update_rel=got[3],
+        worst=got[4], bounds=bounds, cpu_s=t2 - t1)
+    if misses:
+        raise SystemExit(f"{name} training reference: " + "; ".join(misses))
 
 
 def range_training(name, cfgs, report, key):
@@ -2485,6 +3036,7 @@ def range_phases(report, tmp, tree, cudnn_tf32):
         range_serving(task, name, report, key)
         del task
         range_reference(name, cfgs, report, key)
+        range_train_reference(name, cfgs, report, key)
         range_training(name, cfgs, report, key)
     no_port_kernels("range phases")
     launches = dict(cuda_lib.LAUNCHES)
@@ -2496,7 +3048,7 @@ def range_phases(report, tmp, tree, cudnn_tf32):
 
 def kernel_report(rows, launches, entry_launches, spv_launches,
                   spv_entry_launches, cyl_launches, cyl_entry_launches,
-                  range_launches):
+                  range_launches, rpv_launches, rpv_entry_launches):
     """The kernels JSON line: per kernel its launches on the main paths
     (MinkUNet's serving and training phases, SPVCNN's, whose K7 and K8
     also count the launches of its mean-voxelize, and Cylinder3D's), over
@@ -2506,12 +3058,17 @@ def kernel_report(rows, launches, entry_launches, spv_launches,
     K7 and K8, the library call's time; K7 and K8 also their heaviest
     mean-voxelize case; and Cylinder3D's heaviest case of the kernel
     (K1 / K2 its submanifold convs, K3 / K5 its k3 strided convs' forward /
-    backward, K7 / K8 its refinement gather / its backward); and its
-    launches over the range phases, which run none of them."""
+    backward, K7 / K8 its refinement gather / its backward); RPVNet's
+    launches (its range fusion's included) and its heaviest case at its
+    voxel shapes; and its launches over the range phases, which run none
+    of them. Then a row for each K7 / K8 route of RPVNet's range fusion
+    (RANGE_FUSION_ROWS): its launches on RPVNet's serving and training,
+    its heaviest case, bound and library call."""
     kernels = []
     for name, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name
-                and not r["shape"].startswith(("voxelize_mean", "cyl"))]
+                and not r["shape"].startswith(("voxelize_mean", "cyl",
+                                               "rpv"))]
         whole = [r for r in mine
                  if not r["shape"].endswith((" dfeats", " dW"))]
         heavy = max(whole, key=lambda r: r["plain_ms"])
@@ -2526,6 +3083,10 @@ def kernel_report(rows, launches, entry_launches, spv_launches,
             spvcnn_entry_launches=sum(spv_entry_launches[k] for k in spv
                                       if k),
             cylinder_entry_launches=sum(cyl_entry_launches[k] for k in cyl),
+            rpvnet_launches=sum(rpv_launches[k]
+                                for k in meta["rpv_counters"]),
+            rpvnet_entry_launches=sum(rpv_entry_launches[k]
+                                      for k in meta["rpv_counters"]),
             range_launches=sum(range_launches[k] for k in
                                (meta["counter"], meta.get("vmean_counter"),
                                 *cyl) if k),
@@ -2545,7 +3106,8 @@ def kernel_report(rows, launches, entry_launches, spv_launches,
                 row.update({f"{part}_device_ms": h["device_ms"],
                             f"{part}_bound_ms": h["bound_ms"],
                             f"{part}_shape": h["shape"]})
-        for tag, prefix in (("vmean", "voxelize_mean"), ("cylinder", "cyl")):
+        for tag, prefix in (("vmean", "voxelize_mean"), ("cylinder", "cyl"),
+                            ("rpvnet", "rpv L")):
             got = [r for r in rows if r["kernel"] == name
                    and r["shape"].startswith(prefix)]
             if got:
@@ -2558,6 +3120,20 @@ def kernel_report(rows, launches, entry_launches, spv_launches,
         if "vmean_counter" in meta:
             row["vmean_launches"] = spv_launches[meta["vmean_counter"]]
         kernels.append(row)
+    for name, (kernel, counter, prefix) in RANGE_FUSION_ROWS.items():
+        meta = KERNELS[kernel]
+        mine = [r for r in rows if r["kernel"] == kernel
+                and r["shape"].startswith(prefix)]
+        heavy = max(mine, key=lambda r: r["device_ms"])
+        kernels.append(dict(
+            name=name, route=meta["route"], source=meta["source"],
+            replaces=meta["replaces"], launches=rpv_launches[counter],
+            entry_launches=rpv_entry_launches[counter],
+            range_launches=range_launches[counter],
+            max_abs_err=max(r["max_abs_err"] for r in mine),
+            **{k: heavy[k] for k in ("ms", "plain_ms", "device_ms",
+                                     "bound_ms", "bound_by", "library_ms",
+                                     "shape")}))
     return kernels
 
 
@@ -2629,6 +3205,12 @@ def main() -> int:
         log(f"[cases] {len(rows)} kernel cases agree with their plain "
             f"versions; report in {args.report}")
         return 0
+    t_main = time.perf_counter()
+
+    def phase_done(name):
+        report.setdefault("phase_s", {})[name] = time.perf_counter() - t_main
+        log(f"[time] {name} done at {report['phase_s'][name]:.1f} s after "
+            f"the build")
     launches = serving_phase(task, report)
     reference_phase(report)
     profile_phase(task, report)
@@ -2637,21 +3219,30 @@ def main() -> int:
     launches.update({k: v for k, v in training_phase(report).items()
                      if k not in FWD_COUNTERS})
     train_reference_phase(report)
+    phase_done("minkunet")
     scratch = ROOT / "build" / "openpcseg_torch"
     scratch.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="entry_", dir=scratch) as tmp:
         tree = write_entry_tree(tmp)
         entry_launches = entry_point_phase(report, tmp, tree)
+        phase_done("entry")
         spv_rows, spv_launches, spv_entry_launches = spvcnn_phases(
             report, tmp, tree)
+        phase_done("spvcnn")
         cyl_rows, cyl_launches, cyl_entry_launches = cylinder_phases(
             report, tmp, tree)
+        phase_done("cylinder")
+        rpv_rows, rpv_launches, rpv_entry_launches = rpvnet_phases(
+            report, tmp, tree, cudnn_tf32)
+        phase_done("rpvnet")
         range_launches = range_phases(report, tmp, tree, cudnn_tf32)
-    rows += spv_rows + cyl_rows
+        phase_done("range")
+    rows += spv_rows + cyl_rows + rpv_rows
 
     kernels = kernel_report(rows, launches, entry_launches, spv_launches,
                             spv_entry_launches, cyl_launches,
-                            cyl_entry_launches, range_launches)
+                            cyl_entry_launches, range_launches, rpv_launches,
+                            rpv_entry_launches)
     args.report.parent.mkdir(parents=True, exist_ok=True)
     args.report.write_text(json.dumps(report, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

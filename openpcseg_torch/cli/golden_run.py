@@ -1,10 +1,10 @@
-"""Golden surrogate runs of MinkUNet, SPVCNN, Cylinder3D and the range
-models (CENet, FIDNet, RangeNet, SalsaNext): the convergence gate of the
-port.
+"""Golden surrogate runs of MinkUNet, SPVCNN, RPVNet, Cylinder3D and the
+range models (CENet, FIDNet, RangeNet, SalsaNext): the convergence gate of
+the port.
 
 Counterpart of ``tools/scripts/golden_run.py`` for the minkunet, spvcnn,
-cylinder, cenet, fidnet, rangenet and salsanext models (``--model``, the
-blocks of its ``model_setup``). With no dataset
+rpvnet, cylinder, cenet, fidnet, rangenet and salsanext models
+(``--model``, the blocks of its ``model_setup``). With no dataset
 it trains on the ray-cast surrogate (``data/raycast.py``): 128 train scans
 (seeds 0-127) and 16 held-out val scans (seeds 10000-10015), each
 ``raycast_batch(seed, 1, cap=131072)``; batch 1, the model's widths, the
@@ -14,7 +14,17 @@ SGD recipe of the mk34 yamls, the LR warmed up over the first
 the val ground truth (``utils.metrics.gt_present_miou``) and writes the
 curves to ``--out``. The gate: the mean of the last 3 evals is at least
 the model's ``accept_threshold`` in ``GOLDEN_r05_summary.json``, with no
-voxel dropped; the payload's ``gate`` says whether it passed.
+voxel dropped; the payload's ``gate`` says whether it passed. The summary
+has no RPVNet entry: its threshold, derived from JAX's two RPVNet runs by
+the summary's rule, stands in ``golden_gates.json`` beside this file, and
+``accept_threshold`` reads a model there first.
+
+RPVNet runs JAX's protocol model, mk18 at cr 1.0 (NUM_LAYER [2] * 8,
+IN_FEATURE_DIM 5), on each scan made a fusion batch (``to_fusion``): the
+ray-cast scans have no ring ids, so each point's image row is its
+inclination binned into 64 rows over +3 / -25 degrees, and
+``build_fusion_range_image`` draws its azimuth cut from
+``np.random.default_rng(seed)`` of the scan's seed.
 
 A range model takes its yaml's MODEL block with KNN_POST off, the same
 SGD recipe, and each scan projected to a 64 x 2048 range image
@@ -27,6 +37,8 @@ scan's valid points); its eval counts pixels.
         --out GOLDEN_torch_cylinder_s0.json
     python -m openpcseg_torch.cli.golden_run --model cenet --seed 0 \\
         --out GOLDEN_torch_cenet_s0.json
+    python -m openpcseg_torch.cli.golden_run --model rpvnet --seed 0 \\
+        --out GOLDEN_torch_rpvnet_s0.json
     python -m openpcseg_torch.cli.golden_run --data_path <kitti sequences>
 
 With ``--data_path`` it runs the port's training CLI on a real tree
@@ -56,6 +68,7 @@ ROOT = Path(__file__).resolve().parents[2]
 CFG_FILES = {
     "minkunet": "tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10.yaml",
     "spvcnn": "tools/cfgs/fusion/semantic_kitti/spvcnn_mk34_cr10.yaml",
+    "rpvnet": "tools/cfgs/fusion/semantic_kitti/rpvnet_mk18_cr10.yaml",
     "cylinder": "tools/cfgs/voxel/semantic_kitti/cylinder_cy480_cr10.yaml",
     "cenet": "tools/cfgs/range/semantic_kitti/cenet_64x2048.yaml",
     "fidnet": "tools/cfgs/range/semantic_kitti/fidnet_64x2048.yaml",
@@ -65,8 +78,11 @@ CFG_FILES = {
 RANGE_MODELS = ("cenet", "fidnet", "rangenet", "salsanext")
 RANGE_H, RANGE_W = 64, 2048
 # the ray-cast surrogate's NUM_LAYER per model (tools/scripts/golden_run.py)
-NUM_LAYER = {"minkunet": [2, 3, 4, 6, 2, 2, 2, 2], "spvcnn": [2] * 8}
+NUM_LAYER = {"minkunet": [2, 3, 4, 6, 2, 2, 2, 2], "spvcnn": [2] * 8,
+             "rpvnet": [2] * 8}
 SUMMARY = "GOLDEN_r05_summary.json"
+# the port's own gates, for models the summary has no entry for
+GATES = Path(__file__).resolve().parent / "golden_gates.json"
 NUM_CLASS = 20
 VAL_SEED0 = 10_000
 
@@ -121,11 +137,12 @@ def model_setup(cr: float, voxel_cap: int = 98304,
             "OPTIM": base_optim(),
             "TPU": {"VOXEL_CAP_PER_SCAN": voxel_cap},
         }
-    return {
+    cfgs = {
         "DATA": {"DATASET": "semantickitti", "VOXEL_SIZE": 0.05},
         "MODEL": {
-            "NAME": {"minkunet": "MinkUNet", "spvcnn": "SPVCNN"}[model],
-            "IGNORE_LABEL": 0, "IN_FEATURE_DIM": 4,
+            "NAME": {"minkunet": "MinkUNet", "spvcnn": "SPVCNN",
+                     "rpvnet": "RPVNet"}[model],
+            "IGNORE_LABEL": 0, "IN_FEATURE_DIM": 5 if model == "rpvnet" else 4,
             "BLOCK": "ResBlock", "NUM_LAYER": list(NUM_LAYER[model]),
             "PLANES": [32, 32, 64, 128, 256, 256, 128, 96, 96],
             "cr": cr, "DROPOUT_P": 0.0, "LABEL_SMOOTHING": 0.1,
@@ -133,13 +150,26 @@ def model_setup(cr: float, voxel_cap: int = 98304,
         "OPTIM": base_optim(),
         "TPU": {"VOXEL_CAP_PER_SCAN": voxel_cap},
     }
+    if model == "rpvnet":
+        cfgs["MODALITY"] = "fusion"
+    return cfgs
+
+
+def gate_source(model: str) -> Path:
+    """The file that holds the model's accept_threshold: the port's
+    golden_gates.json where it names the model, else the summary."""
+    if model in json.loads(GATES.read_text())["models"]:
+        return GATES
+    return ROOT / SUMMARY
 
 
 def accept_threshold(model: str) -> float:
     """The model's gate: its accept_threshold in GOLDEN_r05_summary.json,
-    the JAX package's tail mIoU over two seeds less their spread."""
-    summary = json.loads((ROOT / SUMMARY).read_text())
-    return float(summary["models"][model]["accept_threshold"])
+    the JAX package's tail mIoU over two seeds less their spread, or, for
+    a model the summary lacks, in golden_gates.json (the same rule over
+    the same kind of JAX runs)."""
+    data = json.loads(gate_source(model).read_text())
+    return float(data["models"][model]["accept_threshold"])
 
 
 def describe_device(device: torch.device) -> str:
@@ -166,6 +196,31 @@ def to_range(b: dict) -> dict:
                       b["labels"][0][v], RANGE_H, RANGE_W)
     scan, label, mask = pack_scan_tensor(s)
     return {"scan": scan[None], "label": label[None], "mask": mask[None]}
+
+
+def to_fusion(b: dict, seed: int, h: int = RANGE_H,
+              w: int = RANGE_W) -> dict:
+    """A cached ray-cast scan (batch of 1) as a fusion batch (JAX
+    golden_run's to_fusion): the features [x, y, z, intensity, row], the
+    h x w range image and each point's pxpy, the row the point's
+    inclination binned over +3 / -25 degrees (the scans have no ring ids),
+    computed over every point of the scan, padding included, as JAX
+    does."""
+    from openpcseg_torch.data.fusion_view import build_fusion_range_image
+    xyz = b["xyz"][0]
+    inten = b["feats"][0][:, 3:4]
+    depth = np.maximum(np.linalg.norm(xyz, 2, axis=1), 1e-6)
+    pitch = np.arcsin(np.clip(xyz[:, 2] / depth, -1, 1))
+    fov_up, fov_down = 3.0 * np.pi / 180, -25.0 * np.pi / 180
+    row = np.clip((1.0 - (pitch - fov_down) / (fov_up - fov_down))
+                  * (h - 1), 0, h - 1)
+    pts5 = np.concatenate([xyz, inten, row[:, None].astype(np.float32)],
+                          axis=1)
+    img, pxpy = build_fusion_range_image(
+        pts5, h, w, np.random.default_rng(seed), row=row)
+    return {"xyz": b["xyz"], "feats": pts5[None], "labels": b["labels"],
+            "valid": b["valid"], "range_image": img[None],
+            "pxpy": pxpy[None]}
 
 
 def load_scans(n_train: int, n_val: int, cap: int, workers: int,
@@ -214,6 +269,8 @@ def run_surrogate(args) -> dict:
                       args.workers, cache)
     if args.model in RANGE_MODELS:
         host = {s: to_range(b) for s, b in host.items()}
+    elif args.model == "rpvnet":
+        host = {s: to_fusion(b, s) for s, b in host.items()}
     print(f"scan cache ready ({time.time() - t0:.0f}s)", flush=True)
 
     # warmup_frac of the steps ramp the LR (WARMUP_EPOCH 1 = one "epoch" of
@@ -259,8 +316,9 @@ def run_surrogate(args) -> dict:
     threshold = accept_threshold(args.model)
     passed = bool(tail_mean is not None and tail_mean >= threshold
                   and int(overflow) == 0)
+    source = gate_source(args.model).relative_to(ROOT).as_posix()
     print(f"gate: tail mean {tail_mean} against {args.model}'s "
-          f"accept_threshold {threshold} ({SUMMARY}), voxel_overflow max "
+          f"accept_threshold {threshold} ({source}), voxel_overflow max "
           f"{int(overflow)}: {'passed' if passed else 'MISSED'}", flush=True)
     payload = {
         "kind": "raycast_surrogate",
@@ -279,7 +337,7 @@ def run_surrogate(args) -> dict:
         "val_perclass_iou": perclass,
         "final_val_miou": curve[-1][1] if curve else None,
         "tail_mean": tail_mean,
-        "gate": {"accept_threshold": threshold, "source": SUMMARY,
+        "gate": {"accept_threshold": threshold, "source": source,
                  "passed": passed},
         "voxel_overflow_max": int(overflow),
         "wall_s": round(wall, 1),

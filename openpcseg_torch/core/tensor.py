@@ -8,7 +8,7 @@ kernel map the network needs, built once per step from the coords alone
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -126,7 +126,10 @@ class VoxelPyramid:
     ``p2v[l]`` is the point-to-voxel table of level l that SPVCNN's
     mean-voxelize and Cylinder3D's refinement gather walk: a one-corner
     DevoxTable (core.geometry.p2v_table) whose ``idx`` [1, n] is JAX's
-    ``p2v[l]``, each point's level-l voxel (-1 none)."""
+    ``p2v[l]``, each point's level-l voxel (-1 none). ``range`` maps a
+    range resolution (H, W) to RPVNet's tables between the points and that
+    range map (``ops.range_fusion.RangeTables``), built with the pyramid
+    for a fusion-input model."""
 
     levels: Tuple[SparseLevel, ...]
     points: PointBuffer
@@ -134,3 +137,4 @@ class VoxelPyramid:
     devox: Dict[int, DevoxTable]         # level -> table
     level_counts: torch.Tensor           # [L] true voxel count per level
     p2v: Dict[int, DevoxTable] = field(default_factory=dict)
+    range: Dict[Tuple[int, int], Any] = field(default_factory=dict)

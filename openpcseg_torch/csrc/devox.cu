@@ -3,9 +3,11 @@
 //   K7: out[p, :] = sum_{c < K} w[c, p] * vox[idx[c, p], :]   (idx -1: skip)
 //   K8: dvox[v, :] = sum_{(c, p): idx[c, p] = v} w[c, p] * dout[p, :]
 //
-// K is 8 for the trilinear tables and 1 for SPVCNN's point-to-voxel tables
-// (core/geometry.py p2v_table: K8 over one is its mean-voxelize's sum, K7
-// its backward's gather).
+// K is 8 for the trilinear tables, 4 for RPVNet's bilinear range-to-point
+// tables (ops/range_fusion.py bilinear_table: the 2 x 2 pixels around each
+// point of a range feature map, float32) and 1 for the point-to-voxel and
+// point-to-pixel tables (core/geometry.py p2v_table: K8 over one is a
+// mean's sum, K7 its backward's gather).
 //
 // K7 replaces (TPU kernel): openpcseg_tpu/ops/pallas_devox.py:_fwd_kernel
 // (launched by _run_fwd, entry pallas_devoxelize). The TPU kernel folds the
@@ -140,8 +142,8 @@ __device__ __forceinline__ void add_partial(const float* p, float (&a)[VEC]) {
   }
 }
 
-// K7. G points at a time per warp, L = 32 / G lanes each; K corners (1 or
-// 8) a point.
+// K7. G points at a time per warp, L = 32 / G lanes each; K corners (1, 4
+// or 8) a point.
 template <typename T, int VEC, int G, int K>
 __global__ void __launch_bounds__(THREADS)
 devox_kernel(const T* __restrict__ vox, const int* __restrict__ idx,
@@ -155,7 +157,8 @@ devox_kernel(const T* __restrict__ vox, const int* __restrict__ idx,
   for (int t = blockIdx.x * WARPS + threadIdx.x / 32; t < tiles;
        t += gridDim.x * WARPS) {
     const int p0 = t * TILE;
-    // lane h * TILE + j holds corners h and h + 4 of point p0 + j
+    // lane h * TILE + j holds corners h and h + 4 of point p0 + j (K 4:
+    // corner h only; K 1: lanes 0-7 hold the one corner)
     const int pl = p0 + lane % TILE;
     const int h = lane / TILE;
     int i_lo = -1, i_hi = -1;
@@ -327,6 +330,7 @@ template <typename T, int VEC>
 int dispatch(const void* vox, const void* idx, const void* w, void* out,
              int n, int c, int k, void* stream) {
   if (k == 8) return dispatch_g<T, VEC, 8>(vox, idx, w, out, n, c, stream);
+  if (k == 4) return dispatch_g<T, VEC, 4>(vox, idx, w, out, n, c, stream);
   if (k == 1) return dispatch_g<T, VEC, 1>(vox, idx, w, out, n, c, stream);
   return (int)cudaErrorInvalidValue;
 }
@@ -355,7 +359,7 @@ int dispatch_bwd(const void* dout, const void* ptr, const void* point,
 }  // namespace
 
 // vox [n_vox, c], idx [k, n] int32 (-1 miss), w [k, n] f32, out [n, c],
-// k 8 or 1; vox and out share the feature type. All contiguous.
+// k 8, 4 or 1; vox and out share the feature type. All contiguous.
 OPCS_API int opcs_devox_bf16(const void* vox, const void* idx, const void* w,
                              void* out, int n, int c, int k, void* stream) {
   if (c % 8 == 0)

@@ -1,5 +1,7 @@
 """SegTask: the train / eval core for one (config, model) pair: the voxel
-and fusion modalities of the voxel-input segmentors (MinkUNet, SPVCNN),
+and fusion modalities of the voxel-input segmentors (MinkUNet, SPVCNN;
+RPVNet, whose fusion input adds the batch's range image, and whose range
+tables the geometry pass builds from each voxel's pxpy),
 the cylinder modality of the point-input Cylinder3D and the range
 modality of the dense range-image CNNs (CENet, FIDNet, RangeNet,
 SalsaNext).
@@ -128,8 +130,9 @@ class SegTask:
             spec = type(self.model).geometry_spec()
             self.geometry = {k: v for k, v in spec.items()
                              if k != "num_levels"}
-            self.point_input = getattr(type(self.model), "INPUT_MODE",
-                                       "voxel") == "point"
+            mode = getattr(type(self.model), "INPUT_MODE", "voxel")
+            self.point_input = mode == "point"
+            self.fusion_input = mode == "fusion"
             tpu_cfg = cfgs.get("TPU", {})
             cap0 = voxel_cap_per_scan or tpu_cfg.get("VOXEL_CAP_PER_SCAN",
                                                      98304)
@@ -160,7 +163,9 @@ class SegTask:
 
     def preprocess(self, batch: Dict[str, torch.Tensor]):
         """Voxelize (or partition the cylinder) + geometry pass ->
-        (VoxelBatch, VoxelPyramid)."""
+        (VoxelBatch, VoxelPyramid); for a fusion-input model also the
+        range tables of each resolution its gates use
+        (``VoxelPyramid.range``), from each voxel's pxpy."""
         if self.modality == "cylinder":
             vb = cylinder_points_batch(
                 batch["xyz"], batch["feats"][..., 3:], batch["labels"],
@@ -180,12 +185,32 @@ class SegTask:
             vb.voxel_coords, vb.voxel_valid, self.caps,
             level0_keys=Keys(vb.voxel_keys_hi, vb.voxel_keys_lo),
             **self.geometry, **points)
+        if self.fusion_input:
+            from ..ops.range_fusion import range_tables
+            b, h, w, _ = batch["range_image"].shape
+            pyr.range = range_tables(
+                self.voxel_pxpy(vb, batch), pyr.points.batch,
+                pyr.points.valid, b, h, w, self.model.RANGE_SCALES)
         return vb, pyr
 
-    def _run_model(self, vb, pyr, **kw):
+    @staticmethod
+    def voxel_pxpy(vb, batch) -> torch.Tensor:
+        """Each voxel's pxpy [V, 2]: its representative (first) point's,
+        0 on padding rows (JAX ``_model_inputs``)."""
+        flat = batch["pxpy"].reshape(-1, 2)
+        rep = flat[vb.voxel_rep.clamp(min=0).long()]
+        return torch.where(vb.voxel_valid[:, None], rep, 0.0)
+
+    def _run_model(self, vb, pyr, batch=None, **kw):
         """The model's outputs on its input (the points' features for a
-        point-input model, else the voxels'): (voxel logits, aux dict)."""
-        x = vb.point_feats if self.point_input else vb.voxel_feats
+        point-input model; for a fusion-input one the voxels' features
+        and the batch's range image, the range tables in `pyr`; else the
+        voxels' features): (voxel logits, aux dict)."""
+        if self.fusion_input:
+            x = {"voxel_feats": vb.voxel_feats,
+                 "range_image": batch["range_image"]}
+        else:
+            x = vb.point_feats if self.point_input else vb.voxel_feats
         out = self.model(x, pyr, **kw)
         return out if isinstance(out, tuple) else (out, {})
 
@@ -207,7 +232,8 @@ class SegTask:
             return self._range_train_step(batch)
         vb, pyr = self.preprocess(batch)
         self.optimizer.zero_grad(set_to_none=True)
-        logits, aux = self._run_model(vb, pyr, generator=self.generator)
+        logits, aux = self._run_model(vb, pyr, batch,
+                                      generator=self.generator)
         loss = self.losses(logits, vb.voxel_labels, vb.voxel_valid)
         if "point_refine_logits" in aux:
             # Cylinder3D's auxiliary point-refinement CE (JAX
@@ -293,7 +319,7 @@ class SegTask:
         VoxelPyramid, voxel logits [V, num_class] f32)."""
         self.model.eval()
         vb, pyr = self.preprocess(batch)
-        return vb, pyr, self._run_model(vb, pyr)[0]
+        return vb, pyr, self._run_model(vb, pyr, batch)[0]
 
     def _point_pred(self, vb, logits) -> torch.Tensor:
         voxel_pred = logits.argmax(dim=-1).to(torch.int32)

@@ -1,7 +1,6 @@
 """Segmentor registry: MODEL.NAME -> torch module (MinkUNet, SPVCNN,
-Cylinder_TS and the range-view CENet, FIDNet, RangeNet and SalsaNext so
-far; RPVNet raises NotImplementedError naming the ROADMAP.md Queue 1 item
-that ports it)."""
+RPVNet, Cylinder_TS and the range-view CENet, FIDNet, RangeNet and
+SalsaNext: every segmentor of the JAX registry)."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -12,21 +11,17 @@ from .range_cenet import CENet
 from .range_fidnet import FIDNet
 from .range_rangenet import RangeNet
 from .range_salsanext import SalsaNext
+from .rpvnet import RPVNet
 from .spvcnn import SPVCNN
 
 SEGMENTORS: Dict[str, Any] = {"MinkUNet": MinkUNet, "SPVCNN": SPVCNN,
-                              "Cylinder_TS": Cylinder_TS, "CENet": CENet,
-                              "FIDNet": FIDNet, "RangeNet": RangeNet,
-                              "SalsaNext": SalsaNext}
-_NOT_PORTED = {"RPVNet": 13}
+                              "RPVNet": RPVNet, "Cylinder_TS": Cylinder_TS,
+                              "CENet": CENet, "FIDNet": FIDNet,
+                              "RangeNet": RangeNet, "SalsaNext": SalsaNext}
 
 
 def build_segmentor(model_cfgs: Dict[str, Any], num_class: int, **kwargs):
     name = model_cfgs["NAME"]
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"segmentor {name!r} is not ported yet (ROADMAP.md Queue 1 item "
-            f"{_NOT_PORTED[name]})")
     if name not in SEGMENTORS:
         raise NotImplementedError(
             f"segmentor {name!r} is not ported yet (have {sorted(SEGMENTORS)})")

@@ -82,7 +82,10 @@ class SalsaResBlock(nn.Module):
         if self.drop_out and self.training:
             out = dropout(res, self.p, generator)
         if self.pooling:
-            out = F.avg_pool2d(out, 3, 2, 1, count_include_pad=True)
+            # an NCHW-contiguous copy: the channels-last backward of
+            # avg_pool2d is wrong on the card (models/rpvnet.py)
+            out = F.avg_pool2d(out.contiguous(), 3, 2, 1,
+                               count_include_pad=True)
         return out, res
 
 

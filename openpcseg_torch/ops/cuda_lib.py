@@ -40,10 +40,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # mean-voxelize sum; the backward of Cylinder3D's refinement gather),
 # "vmean_bwd" K7 (the mean-voxelize's backward; the refinement gather);
 # then Cylinder3D's k3 strided convs on the gather-GEMM: forward, dfeats
-# and dW (gather_dw.cu)
+# and dW (gather_dw.cu); then RPVNet's range fusion (ops/range_fusion.py):
+# "r2p" is K7 over a 4-corner bilinear table (range map -> points),
+# "r2p_bwd" K8 over its transpose, "p2r" K8 over a one-corner pixel table
+# (the sum of the points -> range mean), "p2r_bwd" K7 over it (the mean's
+# backward)
 COUNTERS = ("subm", "down", "up", "devox", "subm_bwd", "down_bwd", "up_bwd",
             "dw", "devox_bwd", "vmean", "vmean_bwd", "strided",
-            "strided_bwd", "strided_dw")
+            "strided_bwd", "strided_dw", "r2p", "r2p_bwd", "p2r", "p2r_bwd")
 LAUNCHES = dict.fromkeys(COUNTERS, 0)
 PLAIN_ON_CUDA = dict.fromkeys(COUNTERS, 0)
 

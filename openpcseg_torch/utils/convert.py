@@ -1,23 +1,26 @@
-"""Load JAX (flax) MinkUNet, SPVCNN, Cylinder_TS and range-model (CENet,
-FIDNet, RangeNet, SalsaNext) variables into the port's models.
+"""Load JAX (flax) MinkUNet, SPVCNN, RPVNet, Cylinder_TS and range-model
+(CENet, FIDNet, RangeNet, SalsaNext) variables into the port's models.
 
 ``jax_params_to_torch(params, batch_stats, model)`` takes the numpy pytrees
 (nested dicts) of ``TrainState.params`` / ``.batch_stats`` and fills every
 parameter and buffer of an ``openpcseg_torch.models.MinkUNet``, ``SPVCNN``,
-``Cylinder_TS``, ``CENet``, ``FIDNet``, ``RangeNet`` or ``SalsaNext``:
+``RPVNet``, ``Cylinder_TS``, ``CENet``, ``FIDNet``, ``RangeNet`` or
+``SalsaNext``:
 
 - a conv ``kernel`` [K*Cin, Cout] becomes the weight [K, Cin, Cout] in
   ``kernel_offsets`` order (layers.py:104-105); 1x1 kernels stay [Cin, Cout];
 - flax auto-names modules per class in creation order (BasicConvBlock_i,
   ResidualBlock_i, SparseConv_i, MaskedBatchNorm_i, StackedBlocks_i and
-  SPVCNN's PointTransform_i; Cylinder3D's Dense_i, ResContextBlock_0,
+  SPVCNN's PointTransform_i; RPVNet's RPVResContext_i, RPVResBlock_i and
+  RPVUpBlock_i; Cylinder3D's Dense_i, ResContextBlock_0,
   CylResBlock_i, CylUpBlock_i, ReconBlock_0 and their ConvActBN_j /
   AsymSubmConv_j), which the walks below reproduce; a Dense ``kernel``
   [Cin, Cout] is the Linear weight transposed, a conv ``bias`` the
   SparseConv's;
 - blocks 2..n of a stage with n >= 3 live in ``StackedBlocks_j`` with every
   leaf stacked on axis 0 (layers.py:347-356) and are unstacked here;
-- a range model's 2-D conv kernel [kh, kw, Cin, Cout] (HWIO) becomes the
+- a range model's (and RPVNet's range branch's) 2-D conv kernel [kh, kw,
+  Cin, Cout] (HWIO) becomes the
   weight [Cout, Cin, kh, kw] (OIHW); RangeNet's transposed conv kernel
   [1, 4, Cin, Cout] becomes [Cin, Cout, 1, 4] flipped along both spatial
   axes (flax's ``ConvTranspose`` does not flip its kernel, torch's
@@ -259,6 +262,33 @@ class _Loader:
                            root + (f"SalsaUpBlock_{i}",))
         self.conv2d(model.logits, ("logits",))
 
+    def rpvnet(self, model, scan_blocks: bool) -> None:
+        """RPVNet.__call__'s creation order: the voxel stem, the range
+        stem, the gate-0 point MLP, the voxel down stages, the range down
+        blocks, then per gate the point MLP after two voxel up stages and
+        two range up blocks; the classifier last."""
+        pts = model.point_transforms
+        for blk in model.stem:
+            self.basic(blk, (self.next("BasicConvBlock"),))
+        for b in model.range_stem:
+            self.convs_bns([(b.conv1, None), (b.conv2, b.bn1),
+                            (b.conv3, b.bn2)], (self.next("RPVResContext"),))
+        self.point_transform(pts[0])
+        for down, blocks in zip(model.downs, model.down_blocks):
+            self.basic(down, (self.next("BasicConvBlock"),))
+            self.blocks(blocks, scan_blocks)
+        for b in model.range_downs:
+            self.convs_bns([(b.conv1, None), (b.conv2, b.bn)],
+                           (self.next("RPVResBlock"),))
+        for gate in (1, 2):
+            self.point_transform(pts[gate])
+            for i in (2 * gate - 2, 2 * gate - 1):
+                self.up(model, i, scan_blocks)
+            for b in model.range_ups[2 * gate - 2:2 * gate]:
+                self.convs_bns([(b.conv, b.bn)], (self.next("RPVUpBlock"),))
+        self.point_transform(pts[3])
+        self.dense(model.classifier, ("classifier",))
+
     def rangenet(self, model) -> None:
         """Top-level convs, transposed convs and BNs share flax's
         per-class counters across the encoder and decoder."""
@@ -283,12 +313,17 @@ def _check(ld) -> None:
 
 def jax_params_to_torch(params, batch_stats, model,
                         scan_blocks: bool = True):
-    """Fill `model` (openpcseg_torch MinkUNet, SPVCNN, Cylinder_TS, CENet,
-    FIDNet, RangeNet or SalsaNext) from flax variables; returns the model.
+    """Fill `model` (openpcseg_torch MinkUNet, SPVCNN, RPVNet, Cylinder_TS,
+    CENet, FIDNet, RangeNet or SalsaNext) from flax variables; returns the
+    model.
     scan_blocks=False matches OPENPCSEG_SCAN_BLOCKS=0 trees. The walk is
     flax's creation order: for SPVCNN the point MLPs come after the down
     stages and after up stages 1 and 3."""
     ld = _Loader(params, batch_stats, model)
+    if type(model).__name__ == "RPVNet":
+        ld.rpvnet(model, scan_blocks)
+        _check(ld)
+        return model
     walk = {"Cylinder_TS": ld.cylinder, "CENet": ld.cenet,
             "FIDNet": ld.fidnet, "SalsaNext": ld.salsanext,
             "RangeNet": ld.rangenet}.get(type(model).__name__)

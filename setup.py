@@ -21,8 +21,10 @@ setup(
                 "(JAX/XLA/Pallas)",
     packages=find_packages(exclude=["tests", "tools"]),
     # the PyTorch / CUDA port ships its kernel sources: they are compiled
-    # with nvcc at first use on a CUDA tensor (openpcseg_torch/ops/cuda_lib.py)
-    package_data={"openpcseg_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+    # with nvcc at first use on a CUDA tensor (openpcseg_torch/ops/
+    # cuda_lib.py); and the golden gates its golden_run reads
+    package_data={"openpcseg_torch": ["csrc/*.cu", "csrc/*.cuh",
+                                      "cli/*.json"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "orbax-checkpoint", "numpy",
                       "pyyaml"],

@@ -14,7 +14,8 @@ import yaml
 from openpcseg_torch.core.geometry import (build_parity_plan, devox_table,
                                            p2v_table)
 from openpcseg_torch.engine.task import SegTask
-from openpcseg_torch.ops import cuda_lib, devox, subm_conv, updown
+from openpcseg_torch.ops import (cuda_lib, devox, range_fusion, subm_conv,
+                                 updown)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -40,6 +41,7 @@ SLICE_MODULES = [
     "openpcseg_torch.cli.train", "openpcseg_torch.cli.infer",
     "openpcseg_torch.cli.golden_run", "openpcseg_torch.models.spvcnn",
     "openpcseg_torch.data.fusion_view", "openpcseg_torch.models.cylinder3d",
+    "openpcseg_torch.models.rpvnet", "openpcseg_torch.ops.range_fusion",
 ]
 
 
@@ -91,6 +93,40 @@ def test_chip_smoke_cylinder_is_the_cy480_cr10_config():
     tpu = {k: v for k, v in cfg["TPU"].items() if k != "COMPUTE_DTYPE"}
     assert chip_smoke.CYL_CFGS["TPU"] == tpu
     assert chip_smoke.N_POINTS == cfg["TPU"]["POINT_CAP_PER_SCAN"]
+
+
+def test_chip_smoke_rpvnet_is_the_mk34_cr17_5_config():
+    import chip_smoke
+    cfg = yaml.safe_load((ROOT / chip_smoke.RPV_ENTRY_CFG).read_text())
+    assert chip_smoke.RPV_MODEL_CFG == cfg["MODEL"]
+    assert chip_smoke.RPV_TRAIN_CFGS["OPTIM"] == cfg["OPTIM"]
+    assert chip_smoke.RPV_CFGS["MODALITY"] == cfg["MODALITY"] == "fusion"
+    assert chip_smoke.RPV_CFGS["DATA"]["VOXEL_SIZE"] == cfg["DATA"][
+        "VOXEL_SIZE"]
+    tpu = {k: v for k, v in cfg["TPU"].items() if k != "COMPUTE_DTYPE"}
+    assert chip_smoke.RPV_CFGS["TPU"] == tpu
+    assert chip_smoke.N_POINTS == cfg["TPU"]["POINT_CAP_PER_SCAN"]
+
+
+def test_range_fusion_wrappers_take_their_kernels_on_a_cuda_tensor(
+        monkeypatch):
+    """RPVNet's range fusion on a (flagged) CUDA tensor calls the kernel
+    entries under its own counters, never the plain versions."""
+    calls = []
+    monkeypatch.setattr(cuda_lib, "check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(cuda_lib, "launch",
+                        lambda name, counter, *a: calls.append(
+                            (name, counter)))
+    pxpy = torch.zeros(16, 2)
+    rt = range_fusion.range_tables(pxpy, torch.zeros(16, dtype=torch.int32),
+                                   torch.ones(16, dtype=torch.bool), 1, 4, 8,
+                                   (1,))[4, 8]
+    fmap = _flag(torch.zeros(1, 8, 4, 8))
+    range_fusion.sample(fmap, rt)
+    range_fusion.scatter_mean(_flag(torch.zeros(16, 8)), rt)
+    assert calls == [("opcs_devox_f32", "r2p"), ("opcs_devox_bwd_f32",
+                                                 "p2r")]
+    assert sum(cuda_lib.PLAIN_ON_CUDA.values()) == 0
 
 
 def test_cylinder_segtask_targets_the_card_by_default():
@@ -158,6 +194,11 @@ def _calls(rng):
     tbl = devox_table(idx, wts, 16)
     p2v = p2v_table(torch.full((16,), -1, dtype=torch.int32), 16)
     z = _flag(torch.zeros(16, 8))
+    pxpy = torch.zeros(16, 2)
+    bidx = torch.zeros(16, dtype=torch.int32)
+    ok = torch.ones(16, dtype=torch.bool)
+    rt = range_fusion.range_tables(pxpy, bidx, ok, 1, 4, 8, (1,))[4, 8]
+    fmap = _flag(torch.zeros(32, 8))
     return {
         "strided": lambda: updown.strided_conv(f, w27, km27),
         "strided_bwd": lambda: updown.strided_conv_bwd(d, f, w27, km27,
@@ -175,6 +216,11 @@ def _calls(rng):
         "devox_bwd": lambda: devox.devoxelize_bwd(f, tbl),
         "vmean": lambda: devox.voxel_sum(z, p2v),
         "vmean_bwd": lambda: devox.point_gather(z, p2v),
+        "r2p": lambda: devox.devoxelize(fmap, rt.bilinear.idx,
+                                        rt.bilinear.weights, "r2p"),
+        "r2p_bwd": lambda: devox.devoxelize_bwd(z, rt.bilinear, "r2p_bwd"),
+        "p2r": lambda: devox.voxel_sum(z, rt.pixel, "p2r"),
+        "p2r_bwd": lambda: devox.point_gather(fmap, rt.pixel, "p2r_bwd"),
     }
 
 
@@ -192,7 +238,7 @@ def no_library(monkeypatch, tmp_path):
 
 WRAPPERS = ["subm", "down", "up", "devox", "subm_bwd", "down_bwd", "up_bwd",
             "dw", "devox_bwd", "vmean", "vmean_bwd", "strided", "strided_bwd",
-            "strided_dw"]
+            "strided_dw", "r2p", "r2p_bwd", "p2r", "p2r_bwd"]
 
 
 @pytest.mark.parametrize("name", WRAPPERS)

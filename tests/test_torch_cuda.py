@@ -513,3 +513,136 @@ def test_cylinder_scatter_max_and_refinement_gather(cyl_pyr):
     assert torch.equal(back[0], back[1])
     _close(got, devox.point_gather_plain(up0e, p.p2v[0]))
     _close(back[0], devox.voxel_sum_plain(dp, p.p2v[0]))
+
+
+# RPVNet's shapes: its range fusion over the range tables of the 8192-point
+# scan's fusion batch (64 x 2048 image), K7 over the 4-corner bilinear
+# table and K8 over its transpose, K8 over the pixel table and K7 back, at
+# (scale, C) of each gate's float32 range map; and the voxel widths the
+# mk34 cases never run (the 5-wide stem, 56, 224 -> 448, the 672 = 448 +
+# 224 concatenation of up stage 0, 448 up)
+RPV_R2P = [(1, 56), (16, 448), (4, 224), (1, 168)]
+RPV_SUBM = [(0, 5, 56), (0, 56, 56), (4, 224, 448), (3, 672, 448)]
+
+
+@pytest.fixture(scope="module")
+def rpv_pyr():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import chip_smoke
+    task = SegTask(chip_smoke.RPV_CFGS, 20, device="cuda",
+                   compute_dtype=torch.bfloat16, voxel_cap_per_scan=8192)
+    return task.preprocess(batch_to_device(
+        chip_smoke.scan_for(chip_smoke.RPV_CFGS, 0, cap=8192), "cuda"))[1]
+
+
+@pytest.mark.parametrize("scale,c", RPV_R2P)
+def test_rpvnet_range_fusion_kernels(rpv_pyr, scale, c):
+    """K7 with K = 4 over a bilinear table and K8 over its transpose; K8
+    over the pixel table and K7 back: against their plain versions, twice
+    bit for bit, each counted under its own counter; empty pixels and
+    padding points get zero rows; sample / scatter_mean and their
+    gradients against the direct range_to_point / point_to_range."""
+    from openpcseg_torch.ops import range_fusion as rf
+    g = torch.Generator(device="cuda").manual_seed(31)
+    h, w = 64 // scale, 2048 // scale
+    rt = rpv_pyr.range[h, w]
+    valid = rpv_pyr.points.valid
+    n = valid.shape[0]
+    fmap = torch.randn(rt.bilinear.num_voxels, c, device="cuda",
+                       generator=g)
+    d = torch.where(valid[:, None], torch.randn(n, c, device="cuda",
+                                                generator=g), 0.0)
+    before = dict(cuda_lib.LAUNCHES)
+    bil = rt.bilinear
+    got = _twice(devox.devoxelize, fmap, bil.idx, bil.weights, "r2p")
+    _close(got, devox.devoxelize_plain(fmap, bil.idx, bil.weights))
+    assert (got[~valid] == 0).all()
+    back = _twice(devox.devoxelize_bwd, d, bil, "r2p_bwd")
+    _close(back, devox.devoxelize_bwd_plain(d, bil))
+    s = _twice(devox.voxel_sum, d, rt.pixel, "p2r")
+    _close(s, devox.voxel_sum_plain(d, rt.pixel))
+    assert (s[rt.pixel.t_ptr.diff() == 0] == 0).all()
+    gat = _twice(devox.point_gather, fmap, rt.pixel, "p2r_bwd")
+    _close(gat, devox.point_gather_plain(fmap, rt.pixel))
+    assert [cuda_lib.LAUNCHES[k] - before[k] for k in (
+        "r2p", "r2p_bwd", "p2r", "p2r_bwd")] == [2, 2, 2, 2]
+    # the autograd route the model takes: sample's gradient is K8 over the
+    # transpose, scatter_mean the pixel sums over their counts
+    x = fmap.reshape(1, h, w, c).permute(0, 3, 1, 2).requires_grad_()
+    out = rf.sample(x, rt)
+    out.backward(d)
+    _close(out, got)
+    _close(x.grad.permute(0, 2, 3, 1).reshape(-1, c), back)
+    _close(rf.scatter_mean(d, rt).permute(0, 2, 3, 1).reshape(-1, c),
+           s / rt.pixel.t_ptr.diff().clamp(min=1)[:, None])
+
+
+@pytest.mark.parametrize("level,cin,cout", RPV_SUBM)
+def test_rpvnet_subm_widths(rpv_pyr, level, cin, cout):
+    """K1 and K2 (dfeats and dW) at RPVNet's ragged and widest widths."""
+    g = torch.Generator(device="cuda").manual_seed(32)
+    lv = rpv_pyr.levels[level]
+    x = _feats(lv, cin, g)
+    w = _rand(27, cin, cout, gen=g).float()
+    d = _feats(lv, cout, g).float()
+    km = lv.subm_kmap
+    _close(_twice(subm_conv.subm_conv, x, w, km),
+           subm_conv.subm_conv_plain(x, w, km))
+    _bwd_check(subm_conv.subm_conv_bwd, subm_conv.subm_conv_bwd_plain,
+               (d, x, w, km))
+
+
+@pytest.mark.parametrize("level,cin,cout", [(3, 448, 448), (2, 448, 224)])
+def test_rpvnet_updown_widths(rpv_pyr, level, cin, cout):
+    """K4 / K5 up at 448 wide and K3 / K6 down at 224 (its widest down)."""
+    g = torch.Generator(device="cuda").manual_seed(33)
+    fine, coarse = rpv_pyr.levels[level], rpv_pyr.levels[level + 1]
+    plan = coarse.parity_plan
+    x = _feats(coarse, cin, g)
+    w = _rand(8, cin, cout, gen=g).float()
+    got, again = (updown.up_conv(x, w, fine.up_kmap, plan),
+                  updown.up_conv(x, w, fine.up_kmap, plan))
+    _parent_check(got, again, updown.up_conv_plain(x, w, fine.up_kmap), plan)
+    _bwd_check(updown.up_conv_bwd, updown.up_conv_bwd_plain,
+               (_feats(fine, cout, g).float(), x, w, fine.up_kmap,
+                coarse.down_kmap))
+    dfine, dcoarse = rpv_pyr.levels[3], rpv_pyr.levels[4]
+    xd = _feats(dfine, 224, g)
+    wd = _rand(8, 224, 224, gen=g).float()
+    _close(_twice(updown.down_conv, xd, wd, dcoarse.down_kmap),
+           updown.down_conv_plain(xd, wd, dcoarse.down_kmap))
+    _bwd_check(updown.down_conv_bwd, updown.down_conv_bwd_plain,
+               (_feats(dcoarse, 224, g).float(), xd, wd, dcoarse.down_kmap,
+                dfine.up_kmap), (dcoarse.parity_plan,))
+
+
+@pytest.mark.parametrize("block", ["rpvnet", "salsanext"])
+def test_range_pools_backward(block):
+    """The pooled range blocks' input gradient on the card against the
+    CPU's float64 one, for a channels-last input (as the convs before them
+    hand it over): they pool an NCHW-contiguous copy, because avg_pool2d's
+    channels-last backward departs from the CPU's on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from openpcseg_torch.models.range_salsanext import SalsaResBlock
+    from openpcseg_torch.models.rpvnet import RPVResBlock
+    torch.manual_seed(0)
+    blk = (RPVResBlock(32, 64) if block == "rpvnet"
+           else SalsaResBlock(32, 64)).train()
+    blk.p = 0.0
+    g = torch.Generator().manual_seed(1)
+    x0 = torch.randn(1, 32, 16, 64, generator=g)
+    wp = torch.randn(1, 64, 8, 32, generator=g)
+    wr = torch.randn(1, 64, 16, 64, generator=g)
+    grads = {}
+    for dev, dt in (("cuda", torch.float32), ("cpu", torch.float64)):
+        torch.backends.cudnn.allow_tf32 = False
+        b = blk.to(dev, dt)
+        x = x0.to(dev, dt).contiguous(
+            memory_format=torch.channels_last).requires_grad_()
+        p, r = b(x, None)
+        ((p * wp.to(dev, dt)).sum() + (r * wr.to(dev, dt)).sum()).backward()
+        grads[dev] = x.grad.double().cpu()
+    err = (grads["cuda"] - grads["cpu"]).abs().max()
+    assert err <= 1e-4 * grads["cpu"].abs().max(), err

@@ -233,10 +233,11 @@ def test_one_corner_table_launches(rng, monkeypatch):
 
 
 def test_devox_rejects_a_corner_count_without_a_kernel(rng, monkeypatch):
-    """K7 is built for 8 corners (trilinear) and 1 (a p2v table)."""
+    """K7 is built for 8 corners (trilinear), 4 (RPVNet's bilinear range
+    tables) and 1 (a p2v or pixel table)."""
     monkeypatch.setattr(cuda_lib, "check_cuda", lambda *a, **k: None)
     idx = torch.zeros(2, 16, dtype=torch.int32)
-    with pytest.raises(ValueError, match=r"\[8, N\] or \[1, N\]"):
+    with pytest.raises(ValueError, match=r"\[K, N\] for K 8, 4 or 1"):
         devox.devoxelize(_flag(torch.zeros(4, 8)), idx, torch.ones(2, 16))
 
 

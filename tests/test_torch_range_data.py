@@ -7,8 +7,8 @@ with its native C++ z-buffer where that library builds (it differs from
 the numpy one on a few pixels a scan); the port has only the numpy one, so
 these tests turn JAX's native projection off. Also: every shipped range
 yaml through ``build_dataloader`` and ``SegTask``, the optimizer and
-scheduler builders, and what still raises (RPVNet, TTA, POST_CRF, the
-other optimizers) with the item that ports it."""
+scheduler builders, and what still raises (TTA, POST_CRF, the other
+optimizers) with the item that ports it."""
 import numpy as np
 import pytest
 import torch

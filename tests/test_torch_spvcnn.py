@@ -397,8 +397,10 @@ def test_registry_and_modalities():
     model = build_segmentor(MODEL, NUM_CLASS)
     assert type(model).__name__ == "SPVCNN"
     assert model.geometry_spec()["p2v_levels"] == (4, 2)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        build_segmentor(dict(MODEL, NAME="RPVNet"), NUM_CLASS)
+    # RPVNet, the last segmentor of the registry, is ported (a fusion-input
+    # model: tests/test_torch_rpvnet.py)
+    assert build_segmentor(dict(MODEL, NAME="RPVNet"),
+                           NUM_CLASS).INPUT_MODE == "fusion"
     for name in ("CENet", "FIDNet", "RangeNet", "SalsaNext"):
         assert build_segmentor(dict(MODEL, NAME=name),
                                NUM_CLASS).MODALITY == "range"

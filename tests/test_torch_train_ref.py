@@ -1,7 +1,9 @@
 """Where ``chip_smoke.TRAIN_REF`` and ``TRAIN_REF_LOSS_MEAN`` (MinkUNet) and
 ``SPV_TRAIN_REF`` and ``SPV_TRAIN_REF_LOSS_MEAN`` (SPVCNN) come from: JAX's
 own bf16 train step against its float32 one, on each draw of
-``chip_smoke.train_ref_draws``.
+``chip_smoke.train_ref_draws`` (RPVNet: of ``rpv_train_ref_draws``, the
+same scan as a fusion batch, with dropout off on both sides, since the
+card's and the CPU's generators draw different masks).
 
 The training-reference phase of chip_smoke.py holds one train step of the
 port on the card (bf16, kernels) against the port on the CPU (float32,
@@ -54,9 +56,10 @@ from openpcseg_torch.utils.convert import jax_params_to_torch
 def torch_to_jax(model, params, batch_stats, cfgs=chip_smoke.TRAIN_CFGS):
     """The flax variables (numpy trees shaped as params / batch_stats, whose
     leaves need only a shape and a dtype) that jax_params_to_torch would
-    turn into `model`'s tensors (a port MinkUNet or SPVCNN built from
-    `cfgs`): its walk is recorded once, then each put is undone (a
-    reshape, or a Dense kernel's transpose)."""
+    turn into `model`'s tensors (a port MinkUNet, SPVCNN or RPVNet built
+    from `cfgs`): its walk is recorded once, then each put is undone (a
+    reshape, a Dense kernel's transpose, a 2-D conv kernel's OIHW back to
+    HWIO)."""
     log = []
 
     class Recorder(convert._Loader):
@@ -93,6 +96,10 @@ def torch_to_jax(model, params, batch_stats, cfgs=chip_smoke.TRAIN_CFGS):
         if path[-1] == "kernel" and (path[-2] == "classifier"
                                      or path[-2].startswith("Dense")):
             v = v.T
+        elif path[-1] == "kernel" and path[-2].startswith("ConvTranspose"):
+            v = v.transpose(2, 3, 0, 1)[::-1, ::-1]   # [Cin, Cout, kh, kw]
+        elif path[-1] == "kernel" and path[-2].startswith("Conv"):
+            v = v.transpose(2, 3, 1, 0)               # OIHW -> HWIO
         if stack is None:
             leaf[path[-1]] = v.reshape(leaf[path[-1]].shape)
         else:
@@ -128,7 +135,18 @@ MODELS = {
                  chip_smoke.PORT_CPU_CYL_BF16_READING,
                  chip_smoke.CYL_TRAIN_REF_LOSS_MEAN,
                  chip_smoke.CYL_TRAIN_REF),
+    "rpvnet": (chip_smoke.RPV_TRAIN_CFGS, chip_smoke.RPV_TRAIN_REF_INPUTS,
+               chip_smoke.JAX_RPV_TRAIN_READING,
+               chip_smoke.PORT_CPU_RPV_BF16_READING,
+               *chip_smoke.train_ref_rule(chip_smoke.JAX_RPV_TRAIN_READING)),
 }
+
+
+def model_draws(model):
+    """The numpy draws of `model`'s training reference."""
+    if model == "rpvnet":
+        return chip_smoke.rpv_train_ref_draws()
+    return chip_smoke.train_ref_draws()
 
 
 def _jax_task(dt, cfgs=chip_smoke.TRAIN_CFGS):
@@ -198,7 +216,8 @@ def test_train_ref_inputs_are_the_recorded_ones(draws, model):
     before it holds its reading to JAX's: numpy draws both, so they do
     not depend on the machine's torch."""
     cfgs, digest = MODELS[model][:2]
-    assert chip_smoke.inputs_digest(draws, _port(cfgs).model) == digest
+    got = draws if model != "rpvnet" else model_draws(model)
+    assert chip_smoke.inputs_digest(got, _port(cfgs).model) == digest
 
 
 def test_train_ref_is_jax_bf16_against_f32():
@@ -246,16 +265,21 @@ def test_train_ref_is_jax_bf16_against_f32():
 
 @pytest.mark.slow
 @pytest.mark.parametrize("model", sorted(MODELS))
-def test_jax_train_reading_is_recorded(draws, model):
+def test_jax_train_reading_is_recorded(model, monkeypatch):
     """JAX's bf16 train step against its float32 one from the port's
-    weights, on each draw, equals chip_smoke.JAX_TRAIN_READING (MinkUNet)
-    or JAX_SPV_TRAIN_READING (SPVCNN)."""
+    weights, on each draw, equals chip_smoke.JAX_TRAIN_READING (MinkUNet),
+    JAX_SPV_TRAIN_READING (SPVCNN), JAX_CYL_TRAIN_READING or
+    JAX_RPV_TRAIN_READING (dropout off: flax's nn.Dropout the identity)."""
+    from flax import linen as fnn
+    monkeypatch.setattr(fnn.Dropout, "__call__",
+                        lambda self, inputs, *a, **k: inputs)
     cfgs, _, recorded = MODELS[model][:3]
+    draws = model_draws(model)
     variables = _variables(_port(cfgs), draws, cfgs)
     twin = SegTask(cfgs, chip_smoke.NUM_CLASS, device="cpu",
                    voxel_cap_per_scan=8192).model
     convs = [n + ".weight" for n, mod in twin.named_modules()
-             if isinstance(mod, SparseConv)]
+             if isinstance(mod, (SparseConv, torch.nn.Conv2d))]
     jdraws = [{k: jnp.asarray(v) for k, v in d.items()} for d in draws]
     loss, grads = {}, {}
     for tag, dt in (("bf16", jnp.bfloat16), ("f32", jnp.float32)):
@@ -288,7 +312,7 @@ def test_jax_train_reading_is_recorded(draws, model):
 
 @pytest.mark.slow
 @pytest.mark.parametrize("model", sorted(MODELS))
-def test_port_bf16_reading_on_the_draws(draws, model):
+def test_port_bf16_reading_on_the_draws(model):
     """The port's plain versions on the CPU in bf16 against float32 on each
     draw, the card's reading without the kernels, equal
     chip_smoke.PORT_CPU_BF16_READING (or PORT_CPU_SPV_BF16_READING) and are
@@ -299,7 +323,7 @@ def test_port_bf16_reading_on_the_draws(draws, model):
 
     cfgs, _, _, recorded, loss_mean, rows = MODELS[model]
     got = []
-    for d in draws:
+    for d in model_draws(model):
         loss, grads = {}, {}
         for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
             t = SegTask(cfgs, chip_smoke.NUM_CLASS,
@@ -307,11 +331,12 @@ def test_port_bf16_reading_on_the_draws(draws, model):
                         voxel_cap_per_scan=8192, seed=chip_smoke.SEED,
                         iters_per_epoch=chip_smoke.ITERS_PER_EPOCH)
             chip_smoke.seed_weights(t.model, chip_smoke.SEED)
+            chip_smoke.no_dropout(t.model)
             loss[tag] = float(t.train_step(batch_to_device(d, "cpu"))["loss"])
             grads[tag] = {n: p.grad.double().reshape(-1)
                           for n, p in t.model.named_parameters()}
         convs = [n + ".weight" for n, mod in t.model.named_modules()
-                 if isinstance(mod, SparseConv)]
+                 if isinstance(mod, (SparseConv, torch.nn.Conv2d))]
         got.append(_reading(loss, grads, convs))
     for i, (rel, cos_all, cos_conv) in enumerate(got):
         print(f"{model} port CPU bf16 vs f32, draw {i}: loss rel "
@@ -328,3 +353,32 @@ def test_port_bf16_reading_on_the_draws(draws, model):
     for (rel, cos_all, cos_conv), row in zip(got, rows, strict=True):
         assert rel <= chip_smoke.train_ref_floor(MODELS[model][2])[0]
         assert cos_all >= row[0] and cos_conv >= row[1]
+
+
+def test_tf32_bounds_are_twice_the_emulation():
+    """The card's range training references and RPVNet's training
+    reference take their TF32 allowance from the CPU emulation
+    (openpcseg_torch.cli.range_tf32 --train): twice its loss rel and
+    update rel, twice its cosines' distance from 1; RPVNet's widened rule
+    still holds the port's own CPU bf16 reading."""
+    for name, (rel, ca, cw, upd) in chip_smoke.RANGE_TF32_TRAIN.items():
+        assert chip_smoke.range_train_bounds(name) == pytest.approx(
+            (2 * rel, 1 - 2 * (1 - ca), 1 - 2 * (1 - cw), 2 * upd))
+        assert 0 < rel < 1e-3 and 0.9 < cw <= ca < 1 and 0 < upd < 1
+    reading = chip_smoke.JAX_RPV_TRAIN_READING
+    loss_mean, rows = chip_smoke.train_ref_rule(reading)
+    floor = chip_smoke.train_ref_floor(reading)
+    wide = chip_smoke.tf32_widened(loss_mean, rows, floor,
+                                   chip_smoke.RPV_TF32_READING)
+    rel, ca, cc = chip_smoke.RPV_TF32_READING
+    assert wide[0] == pytest.approx(loss_mean + 2 * rel)
+    for (a, c), (wa, wc) in zip(rows, wide[1]):
+        assert wa == pytest.approx(a - 2 * (1 - ca))
+        assert wc == pytest.approx(c - 2 * (1 - cc))
+    assert wide[2] == pytest.approx((floor[0] + 2 * rel,
+                                     floor[1] - 2 * (1 - ca),
+                                     floor[2] - 2 * (1 - cc)))
+    port = chip_smoke.PORT_CPU_RPV_BF16_READING
+    assert np.mean([r[0] for r in port]) <= wide[0]
+    for (r, a, c), (wa, wc) in zip(port, wide[1]):
+        assert r <= wide[2][0] and a >= wa and c >= wc
