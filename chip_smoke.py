@@ -9,11 +9,16 @@ minkunet_mk34_cr10.yaml), of SPVCNN mk34_cr10 (tools/cfgs/fusion/
 semantic_kitti/spvcnn_mk34_cr10.yaml), of Cylinder3D cy480_cr10
 (tools/cfgs/voxel/semantic_kitti/cylinder_cy480_cr10.yaml), of RPVNet
 mk34_cr17_5 (tools/cfgs/fusion/semantic_kitti/rpvnet_mk34_cr17_5.yaml)
-and of the range models CENet, FIDNet, RangeNet and SalsaNext
-(tools/cfgs/range/semantic_kitti/*_64x2048.yaml), at full width, with
-weights drawn
-from a seeded torch.Generator, on 131,072-point ray-cast scans, computing
-in bfloat16 through eight hand-written CUDA kernels (openpcseg_torch/csrc):
+of the range models CENet, FIDNet, RangeNet and SalsaNext
+(tools/cfgs/range/semantic_kitti/*_64x2048.yaml), and of MinkUNet
+mk34_cr16 on Waymo Open (tools/cfgs/voxel/waymo/minkunet_mk34_cr16.yaml
+and its _infer twin: widths 51-409, every conv on its kernel's ragged
+path), with every other shipped Waymo and nuScenes yaml for a step, at
+full width, with weights drawn from a seeded torch.Generator, on
+131,072-point ray-cast scans (Waymo: ~180k-point ray-cast frames of
+data/raycast_waymo.py; nuScenes: sweeps of data/raycast_nuscenes.py),
+computing in bfloat16 through eight hand-written CUDA kernels
+(openpcseg_torch/csrc):
 
   K1 subm gather-GEMM   K3 down gather-GEMM   K4 up parent gather
   K7 trilinear devoxelize                     (forward, eval and train)
@@ -141,7 +146,27 @@ Phases, in order (any failure exits non-zero and prints no result line):
      idle share); then CENet's yaml through the train CLI at batch 2 (an
      epoch, a resumed second) and the infer CLI with --save_pred
      --save_raw_ids (one raw id per pixel); no counter of the port's
-     kernels may move over the phase.
+     kernels may move over the phase;
+ 15. Waymo MinkUNet mk34_cr16 phases (the yaml as it stands, caps 196,608
+     points and 163,840 voxels): every kernel case at its widths
+     (mink_shapes of its MODEL block, the _xyz yaml's 3-channel stem, K7 /
+     K8 at 409, 204 and 153) on the pyramid of Waymo frame SEED, forward
+     and backward, each against its plain version, twice, bit for bit,
+     timed, and each kernel's share of its bound beside mk34_cr10's;
+     serving (as 4), the eval profile and idle share, the eval reference
+     on an 8192-point Waymo frame (as 5), training (as 8), the training
+     reference over ten draws of that frame under MinkUNet mk34_cr10's
+     rule (as 9); then a ray-cast Waymo tree (WAYMO_ENTRY_FRAMES), the
+     train CLI at the yaml's batch 8 for an epoch and a resumed second
+     (scans/s, max_memory_allocated), and the infer CLI on the _infer
+     yaml streaming the unlabeled sequence from the last checkpoint (one
+     .npy a frame, one id a point);
+ 16. every other shipped Waymo / nuScenes yaml (YAML_CELLS) at full width
+     and batch 1: one train and one eval step on a batch of its own view
+     (voxel_overflow 0, finite loss, hist = valid points, its family's
+     counters launched, none for CENet), then nuScenes CENet through the
+     CLIs at batch 1 and its submission dump (lidarseg/val/
+     <token>_lidarseg.bin, uint8 raw ids). The run's total time is logged.
 Every kernel case carries CUDA-event ms of the wrapper and of the plain
 version, the kernel's profiler device ms, and its bound (bound_ms: bytes
 over the memory rate or operations over the peak rate, whichever is
@@ -328,6 +353,11 @@ CYL_NEED = CYL_FWD + ("subm_bwd", "dw", "strided_bwd", "strided_dw",
 ENTRY_CFG = "tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10.yaml"
 ENTRY_BATCH = 2
 ENTRY_SCANS = (4, 2)
+# the depth of the network in the entry phase's step against the CPU
+# float32 step (entry_reference): its stages cut to one block each, to
+# hold the whole run inside its time (the CPU step at the yaml's depth took
+# 111 s of the card machine's CPU); its batch and widths are the CLI's
+ENTRY_REF_LAYERS = [1] * 8
 # == the MODEL and OPTIM blocks of tools/cfgs/fusion/semantic_kitti/
 # spvcnn_mk34_cr10.yaml: SPVCNN's serving, reference, training and entry
 # phases; its convs have MinkUNet mk34's shapes, so the kernel cases above
@@ -541,13 +571,33 @@ for _name, _cyl in (("K1_subm_conv", ("subm",)),
                     ("K6_down_conv_bwd", ()), ("K7_devoxelize", ("vmean_bwd",)),
                     ("K8_devoxelize_bwd", ("vmean",))):
     KERNELS[_name]["cyl_counters"] = _cyl
-SUBM_PAIRS = [(0, 4, 32), (0, 32, 32), (1, 32, 32), (2, 32, 64), (2, 64, 64),
-              (3, 64, 128), (3, 128, 128), (4, 128, 256), (4, 256, 256),
-              (3, 384, 256), (3, 256, 256), (2, 192, 128), (2, 128, 128),
-              (1, 128, 96), (1, 96, 96), (0, 128, 96), (0, 96, 96)]
-DOWNS = [(1, 32), (2, 32), (3, 64), (4, 128)]          # (coarse level, C)
-UPS = [(3, 256, 256), (2, 256, 128), (1, 128, 96), (0, 96, 96)]  # fine lvl
-DEVOX = [(4, 256), (2, 128)]
+
+
+def mink_shapes(model_cfg):
+    """The kernel shapes of a MinkUNet MODEL block, from its widths cs =
+    int(cr x PLANES): (level, Cin, Cout) of every submanifold conv (the
+    stem; each down stage's first block, when it widens, and the rest; each
+    up stage's first conv over the concatenation with the skip, and the
+    rest), (coarse level, C) of the down convs, (fine level, Cin, Cout) of
+    the up convs and (level, C) of the devoxelizes of levels 4 and 2 (level
+    0's is the identity: the points are its voxels). mk34_cr10: 4 -> 32 ...
+    96; Waymo's mk34_cr16: 5 -> 51 ... 153."""
+    cs = [int(model_cfg.get("cr", 1.0) * x) for x in model_cfg["PLANES"]]
+    subm = [(0, model_cfg["IN_FEATURE_DIM"], cs[0]), (0, cs[0], cs[0])]
+    for i in range(4):
+        if cs[i] != cs[i + 1]:
+            subm.append((i + 1, cs[i], cs[i + 1]))
+        subm.append((i + 1, cs[i + 1], cs[i + 1]))
+    for i in range(4):
+        subm += [(3 - i, cs[5 + i] + cs[3 - i], cs[5 + i]),
+                 (3 - i, cs[5 + i], cs[5 + i])]
+    downs = [(i + 1, cs[i]) for i in range(4)]
+    ups = [(3 - i, cs[4 + i], cs[5 + i]) for i in range(4)]
+    return subm, downs, ups, [(4, cs[4]), (2, cs[6])]
+
+
+# (level, Cin, Cout), (coarse level, C), (fine level, Cin, Cout), (level, C)
+SUBM_PAIRS, DOWNS, UPS, DEVOX = mink_shapes(MODEL_CFG)
 DEVOX_CHUNKS = (16, 32, 64, 128)  # K8 segment lengths timed per DEVOX case
 
 
@@ -831,7 +881,8 @@ def check_cases(cases, tag, timed=True):
                    f"{row['library_device_ms']:.4f})")
             times = (f" kernel {row['ms']:.4f} ms (device "
                      f"{row['device_ms']:.4f} ms, bound {bound_ms:.4f} ms by "
-                     f"{bound_by}) plain {row['plain_ms']:.4f} ms{lib}")
+                     f"{bound_by}, {bound_ms / row['device_ms']:.1%} of it) "
+                     f"plain {row['plain_ms']:.4f} ms{lib}")
         rows.append(row)
         log(f"[{tag}] {c['kernel']:17s} {c['label']:25s} max|err|/max|ref| "
             + " ".join(f"{e:.3e}/{sc:.3e}" for e, sc in zip(errs, scales))
@@ -869,10 +920,9 @@ def log_occupancy(pyr):
 
 
 def kernel_phase(task, gen, report):
-    from openpcseg_torch.data.raycast import raycast_batch
     from openpcseg_torch.engine.task import batch_to_device
 
-    b = batch_to_device(raycast_batch(SEED, 1, cap=N_POINTS), "cuda")
+    b = batch_to_device(scan_for(CFGS, SEED), "cuda")
     vb, pyr = task.preprocess(b)
     counts = pyr.level_counts.tolist()
     log(f"[kernels] pyramid of scan {SEED}: voxels per level {counts}, "
@@ -914,7 +964,9 @@ def serving_phase(task, report, tag="serve", need=FWD_COUNTERS, key=""):
     from openpcseg_torch.engine.task import batch_to_device
     from openpcseg_torch.ops import cuda_lib
 
-    scans = [scan_for(task.cfgs, SEED + 1 + i) for i in range(REQUESTS + 1)]
+    seeds = [SEED + 1 + i for i in range(REQUESTS + 1)]
+    cast_scans(task.cfgs, seeds)
+    scans = [scan_for(task.cfgs, s) for s in seeds]
     cuda_lib.reset_counts()
     lat = []
     reqs = []
@@ -935,8 +987,8 @@ def serving_phase(task, report, tag="serve", need=FWD_COUNTERS, key=""):
             f"pred {tuple(pred.shape)}")
         if over != 0 or int(hist.sum()) != n_valid:
             raise SystemExit(f"{tag}: overflow or hist/point-count mismatch")
-        if tuple(pred.shape) != (1, N_POINTS) or int(pred.min()) < 0 or int(
-                pred.max()) >= NUM_CLASS:
+        if tuple(pred.shape) != scan["valid"].shape or int(
+                pred.min()) < 0 or int(pred.max()) >= task.num_class:
             raise SystemExit(f"{tag}: bad predictions {tuple(pred.shape)}")
         if i > 0:
             lat.append(ms)
@@ -982,7 +1034,7 @@ def tables_from_cpu(task, cfgs, **task_kw):
     a card-against-CPU comparison holds the network, not a point whose
     cylindrical cell the card's float32 rounds into another."""
     from openpcseg_torch.engine.task import SegTask
-    cpu = SegTask(cfgs, NUM_CLASS, device="cpu", **task_kw)
+    cpu = SegTask(cfgs, classes(cfgs), device="cpu", **task_kw)
     task.preprocess = lambda b: to_device(cpu.preprocess(to_device(
         b, "cpu")), "cuda")
 
@@ -1018,7 +1070,7 @@ def reference_phase(report, cfgs=CFGS, tag="reference", cpu_tables=False):
     scan = scan_for(cfgs, SEED, cap=8192)
     logits = {}
     for dev, dt in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
-        t = SegTask(cfgs, NUM_CLASS, device=dev, compute_dtype=dt,
+        t = SegTask(cfgs, classes(cfgs), device=dev, compute_dtype=dt,
                     voxel_cap_per_scan=8192, seed=SEED)
         if cpu_tables and dev == "cuda":
             tables_from_cpu(t, cfgs, voxel_cap_per_scan=8192)
@@ -1515,10 +1567,9 @@ def backward_kernel_phase(task, gen, report):
     """Each backward kernel against its plain version, per output, and a
     bit-identical repeat, whole and pass by pass; before them, the devox
     tables' statistics and K8 by chunk (devox_phase)."""
-    from openpcseg_torch.data.raycast import raycast_batch
     from openpcseg_torch.engine.task import batch_to_device
 
-    b = batch_to_device(raycast_batch(SEED, 1, cap=N_POINTS), "cuda")
+    b = batch_to_device(scan_for(CFGS, SEED), "cuda")
     _, pyr = task.preprocess(b)
     devox_phase(pyr, report)
     rows = check_cases(backward_cases(pyr, gen), "bwd")
@@ -1536,7 +1587,7 @@ def training_phase(report, cfgs=TRAIN_CFGS, tag="train", need=None,
     from openpcseg_torch.ops import cuda_lib
 
     need = need or MINK_COUNTERS
-    task = SegTask(cfgs, NUM_CLASS, device="cuda",
+    task = SegTask(cfgs, classes(cfgs), device="cuda",
                    compute_dtype=torch.bfloat16, seed=SEED,
                    iters_per_epoch=ITERS_PER_EPOCH)
     scan = scan_for(cfgs, SEED + 1)
@@ -1588,14 +1639,14 @@ def training_phase(report, cfgs=TRAIN_CFGS, tag="train", need=None,
     return totals
 
 
-def train_ref_draws():
+def train_ref_draws(cfgs=CFGS):
     """The training reference's inputs, numpy batches: the 8192-point
-    ray-cast scan of SEED, then TRAIN_REF_DRAWS - 1 copies of it with its
-    features scaled by 1 + TRAIN_REF_NOISE * N(0, 1) (seeded). Each is one
-    draw of bf16's rounding over the same geometry."""
-    from openpcseg_torch.data.raycast import raycast_batch
+    scan of SEED as `cfgs`'s model reads it (the ray-cast scan; on Waymo
+    the frame), then TRAIN_REF_DRAWS - 1 copies of it with its features
+    scaled by 1 + TRAIN_REF_NOISE * N(0, 1) (seeded). Each is one draw of
+    bf16's rounding over the same geometry."""
 
-    scan = raycast_batch(SEED, 1, cap=8192)
+    scan = scan_for(cfgs, SEED, cap=8192)
     rng = np.random.default_rng(SEED)
     draws = [scan]
     for _ in range(TRAIN_REF_DRAWS - 1):
@@ -1605,16 +1656,44 @@ def train_ref_draws():
     return draws
 
 
-def scan_for(cfgs, seed, cap=N_POINTS):
+def scan_for(cfgs, seed, cap=None):
     """The ray-cast scan of `seed` as `cfgs`'s model reads it (numpy, a
-    batch of 1): RPVNet's a fusion batch (golden_run.to_fusion: the 64 x
-    2048 range image and each point's pxpy), every other model's the scan
-    as ray-cast."""
+    batch of 1, padded to `cap` points, by default the config's cap): on
+    Waymo the frame of data/raycast_waymo.py as WaymoDataset reads it (both
+    returns, tanh of intensity and elongation); else RPVNet's a fusion
+    batch (golden_run.to_fusion: the 64 x 2048 range image and each point's
+    pxpy), every other model's the scan as ray-cast. Scans are cast once
+    a run (_SCANS)."""
     from openpcseg_torch.cli.golden_run import to_fusion
     from openpcseg_torch.data.raycast import raycast_batch
+    from openpcseg_torch.data.raycast_waymo import frame_batch
 
-    b = raycast_batch(seed, 1, cap=cap)
+    cap = cap or cfgs.get("TPU", {}).get("POINT_CAP_PER_SCAN", N_POINTS)
+    waymo = cfgs["DATA"]["DATASET"] == "waymo"
+    key = (waymo, seed, cap)
+    if key not in _SCANS:
+        _SCANS[key] = (frame_batch(seed, cap) if waymo
+                       else raycast_batch(seed, 1, cap=cap))
+    b = _SCANS[key]
     return to_fusion(b, seed) if cfgs["MODEL"]["NAME"] == "RPVNet" else b
+
+
+_SCANS: dict = {}
+SCAN_THREADS = 8
+
+
+def cast_scans(cfgs, seeds, cap=None):
+    """scan_for of each seed, cast in SCAN_THREADS threads (numpy's array
+    passes release the GIL) before the phase that reads them."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(SCAN_THREADS) as pool:
+        list(pool.map(lambda s: scan_for(cfgs, s, cap), seeds))
+
+
+def classes(cfgs) -> int:
+    """The class count of `cfgs`'s dataset (data.num_classes_for)."""
+    from openpcseg_torch.data import num_classes_for
+    return num_classes_for(cfgs["DATA"]["DATASET"])
 
 
 def rpv_train_ref_draws():
@@ -1718,7 +1797,8 @@ def step_against_cpu(cfgs, batch, weights_seed=None, cpu_tables=False,
     loss, grads, convs, secs = {}, {}, None, {}
     for tag, dev, dt in runs:
         t0 = time.perf_counter()
-        t = SegTask(cfgs, NUM_CLASS, device=dev, compute_dtype=dt, seed=SEED,
+        t = SegTask(cfgs, classes(cfgs), device=dev, compute_dtype=dt,
+                    seed=SEED,
                     **task_kw)
         if cpu_tables and dev == "cuda":
             tables_from_cpu(t, cfgs, **task_kw)
@@ -1796,8 +1876,8 @@ def train_reference_phase(report, model="MinkUNet", cpu_tables=False):
                                              RPV_TF32_READING)
         draws = rpv_train_ref_draws()
     else:
-        draws = train_ref_draws()
-    net = SegTask(cfgs, NUM_CLASS, device="cpu",
+        draws = train_ref_draws(cfgs)
+    net = SegTask(cfgs, classes(cfgs), device="cpu",
                   voxel_cap_per_scan=8192).model
     seed_weights(net, SEED)
     digest = inputs_digest(draws, net)
@@ -1813,18 +1893,21 @@ def train_reference_phase(report, model="MinkUNet", cpu_tables=False):
                              iters_per_epoch=ITERS_PER_EPOCH)
         misses += hold_step(f"{tag} draw {i}", r, (floor[0],) + ref[i])
         log(f"[{tag} draw {i}] JAX bf16 vs f32 {jax_reading[i]}, port CPU "
-            f"bf16 vs f32 {port_reading[i]}")
+            f"bf16 vs f32 {port_reading[i] if port_reading else '-'}")
         rows.append(r)
     means, sd = {}, {}
     for name, vals in (("card", [r["loss_rel"] for r in rows]),
                        ("jax", [r[0] for r in jax_reading]),
-                       ("port_cpu_bf16", [r[0] for r in port_reading])):
-        means[name], sd[name] = statistics.fmean(vals), statistics.stdev(vals)
+                       ("port_cpu_bf16", [r[0] for r in port_reading or ()])):
+        if vals:
+            means[name] = statistics.fmean(vals)
+            sd[name] = statistics.stdev(vals)
     log(f"[{tag}] mean relative loss difference over {len(rows)} draws: "
         f"card {means['card']:.4e} (bound {loss_mean:.4e}, twice JAX's "
-        f"{means['jax']:.4e}), port CPU bf16 {means['port_cpu_bf16']:.4e}; "
-        f"standard deviations card {sd['card']:.4e}, JAX {sd['jax']:.4e}, "
-        f"port CPU bf16 {sd['port_cpu_bf16']:.4e}")
+        f"{means['jax']:.4e}); standard deviations card {sd['card']:.4e}, "
+        f"JAX {sd['jax']:.4e}; port CPU bf16 mean, sd "
+        f"{means.get('port_cpu_bf16', float('nan')):.4e}, "
+        f"{sd.get('port_cpu_bf16', float('nan')):.4e}")
     if means["card"] > loss_mean:
         misses.append(f"mean loss rel {means['card']:.4e} beyond "
                       f"{loss_mean:.4e}")
@@ -1850,7 +1933,8 @@ def entry_batch(argv):
 
 def entry_reference(cfgs, batch, report):
     """The entry phase's own batch on the card, after its counters are
-    read: one train step against the CPU float32 reference, held to
+    read: one train step of the CLI's network cut to ENTRY_REF_LAYERS
+    against the CPU float32 reference, held to
     TRAIN_REF_LOSS_MEAN and the strictest cosine rows of TRAIN_REF (no JAX
     reading exists at this size), then every forward and backward kernel
     case, untimed, on the pyramid of that batch."""
@@ -1858,7 +1942,9 @@ def entry_reference(cfgs, batch, report):
 
     strict = (TRAIN_REF_LOSS_MEAN, max(r[0] for r in TRAIN_REF),
               max(r[1] for r in TRAIN_REF))
-    step = step_against_cpu(cfgs, batch, batch_per_device=ENTRY_BATCH)
+    step = step_against_cpu(
+        dict(cfgs, MODEL=dict(cfgs["MODEL"], NUM_LAYER=ENTRY_REF_LAYERS)),
+        batch, batch_per_device=ENTRY_BATCH)
     misses = hold_step(f"entry-ref batch {ENTRY_BATCH}", step, strict)
     if misses:
         raise SystemExit("entry reference: " + "; ".join(misses))
@@ -2066,7 +2152,6 @@ def spvcnn_phases(report, tmp, tree):
     training (every counter launched on every step), the training
     reference over its draws, and the entry points. Returns the cases, the launches
     of serving and training, and those of the entry phase."""
-    from openpcseg_torch.data.raycast import raycast_batch
     from openpcseg_torch.engine.task import SegTask, batch_to_device
     from openpcseg_torch.ops import cuda_lib
 
@@ -2077,7 +2162,7 @@ def spvcnn_phases(report, tmp, tree):
     reference_phase(report, SPV_CFGS, "spvcnn_reference")
     profile_phase(task, report, "spvcnn_")
     _, pyr = task.preprocess(batch_to_device(
-        raycast_batch(SEED, 1, cap=N_POINTS), "cuda"))
+        scan_for(CFGS, SEED), "cuda"))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     rows = check_cases(vmean_cases(pyr, gen), "vmean")
     report["vmean_cases"] = rows
@@ -2222,13 +2307,12 @@ def point_branch_phase(task, eval_ms, report):
     its compression, the refinement head over the level-0 rows; the
     model's own methods, the UNet left out) and its share of the eval
     step's device time `eval_ms`."""
-    from openpcseg_torch.data.raycast import raycast_batch
     from openpcseg_torch.engine.task import batch_to_device
 
     m = task.model.eval()
     with torch.no_grad():
         vb, pyr = task.preprocess(batch_to_device(
-            raycast_batch(SEED + 1, 1, cap=N_POINTS), "cuda"))
+            scan_for(CFGS, SEED + 1), "cuda"))
         up0e = torch.zeros(pyr.levels[0].capacity, m.refine.in_features,
                            device="cuda")
 
@@ -2321,7 +2405,6 @@ def cylinder_phases(report, tmp, tree):
     reference over its draws under its own JAX reading, and the entry
     points. Returns the cases, the launches of serving and training, and
     those of the entry phase."""
-    from openpcseg_torch.data.raycast import raycast_batch
     from openpcseg_torch.engine.task import SegTask, batch_to_device
 
     task = SegTask(CYL_CFGS, NUM_CLASS, device="cuda",
@@ -2334,7 +2417,7 @@ def cylinder_phases(report, tmp, tree):
     report["cylinder_eval_idle_share"] = idle
     point_branch_phase(task, eval_ms, report)
     _, pyr = task.preprocess(batch_to_device(
-        raycast_batch(SEED, 1, cap=N_POINTS), "cuda"))
+        scan_for(CFGS, SEED), "cuda"))
     log(f"[cyl-kernels] pyramid of scan {SEED}: voxels per level "
         f"{pyr.level_counts.tolist()}, caps {task.caps}")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
@@ -2342,7 +2425,7 @@ def cylinder_phases(report, tmp, tree):
     report["cylinder_cases"] = rows
     scatter_max_check(pyr, report)
     del task, pyr
-    moved = cells_moved(CYL_CFGS, raycast_batch(SEED, 1, cap=8192))
+    moved = cells_moved(CYL_CFGS, scan_for(CFGS, SEED, cap=8192))
     log(f"[cylinder-reference] points of the 8192-point scan whose cell the "
         f"card and the CPU put apart: {moved}"
         + ("; the card's runs below take the CPU's tables" if moved else ""))
@@ -2598,6 +2681,389 @@ def rpvnet_phases(report, tmp, tree, cudnn_tf32):
     return rows, launches, entry
 
 
+# == Waymo Open and nuScenes-lidarseg (data/waymo.py, data/nuscenes.py) on
+# ray-cast trees in each dataset's layout (data/raycast_waymo.py,
+# data/raycast_nuscenes.py). The main path: MinkUNet mk34_cr16 on Waymo,
+# the MODEL block of WAYMO_CFG at full width: cs = int(1.6 x PLANES) = 51,
+# 51, 102, 204, 409, 409, 204, 153, 153 over a 5-channel stem, so every
+# conv takes its kernel's ragged path (Cin or Cout not a multiple of 8)
+WAYMO_CFG = "tools/cfgs/voxel/waymo/minkunet_mk34_cr16.yaml"
+WAYMO_INFER_CFG = "tools/cfgs/voxel/waymo/minkunet_mk34_cr16_infer.yaml"
+WAYMO_MODEL_CFG = dict(MODEL_CFG, IN_FEATURE_DIM=5, cr=1.6)
+WAYMO_OPTIM_CFG = dict(OPTIM_CFG, BATCH_SIZE_PER_GPU=8)
+WAYMO_CFGS = {
+    "MODALITY": "voxel",
+    "DATA": {"DATASET": "waymo", "VOXEL_SIZE": 0.1},
+    "MODEL": WAYMO_MODEL_CFG,
+    "TPU": {"POINT_CAP_PER_SCAN": 196608, "VOXEL_CAP_PER_SCAN": 163840},
+}
+WAYMO_TRAIN_CFGS = dict(WAYMO_CFGS, OPTIM=WAYMO_OPTIM_CFG)
+# its entry phase: train, val and unlabeled-sequence frames of the tree
+WAYMO_ENTRY_FRAMES = (16, 8, 8)
+# its training reference: the 8192-point Waymo frame of SEED and nine
+# feature-perturbed copies (train_ref_draws(WAYMO_CFGS)), weights
+# seed_weights(SEED), held to MinkUNet mk34_cr10's rule (its JAX reading:
+# train_ref_rule and TRAIN_GROSS), set before the first card run
+WAYMO_TRAIN_REF_INPUTS = "c43930a06e795756"
+TRAIN_REF_MODELS["Waymo"] = (
+    WAYMO_TRAIN_CFGS, WAYMO_TRAIN_REF_INPUTS, JAX_TRAIN_READING, None,
+    "waymo_train_reference", "waymo-train-ref")
+# every other shipped Waymo / nuScenes yaml, one train and one eval step
+# each at full width and batch 1 on a batch of its own view, and the
+# counters its family must move (CENet: none)
+SPV_NEED = MINK_COUNTERS + SPV_COUNTERS
+YAML_CELLS = (
+    ("tools/cfgs/voxel/waymo/minkunet_mk18_cr10.yaml", MINK_COUNTERS),
+    ("tools/cfgs/voxel/waymo/minkunet_mk34_cr10.yaml", MINK_COUNTERS),
+    ("tools/cfgs/voxel/waymo/minkunet_mk34_cr16_xyz.yaml", MINK_COUNTERS),
+    ("tools/cfgs/voxel/waymo/cylinder_cy480_cr10.yaml", CYL_NEED),
+    ("tools/cfgs/fusion/waymo/spvcnn_mk18_cr10.yaml", SPV_NEED),
+    ("tools/cfgs/fusion/waymo/spvcnn_mk34_cr16.yaml", SPV_NEED),
+    ("tools/cfgs/fusion/waymo/rpvnet_mk18_cr10.yaml", RPV_NEED),
+    ("tools/cfgs/voxel/nuscenes/minkunet_mk34_cr10.yaml", MINK_COUNTERS),
+    ("tools/cfgs/voxel/nuscenes/cylinder_cy480_cr10.yaml", CYL_NEED),
+    ("tools/cfgs/fusion/nuscenes/spvcnn_mk34_cr10.yaml", SPV_NEED),
+    ("tools/cfgs/range/nuscenes/cenet_32x1088.yaml", ()),
+)
+NUSC_CENET_CFG = "tools/cfgs/range/nuscenes/cenet_32x1088.yaml"
+NUSC_SWEEPS = (2, 1)     # train and val sweeps of the nuScenes tree
+
+
+def share_lines(rows, aligned):
+    """Per kernel row (and backward pass), the summed bound of the Waymo
+    cases over their summed device time, beside the same of MinkUNet
+    mk34_cr10's cases of that kernel (`aligned`): what the ragged widths
+    cost against the mk34 widths. Returns the table."""
+    def part(r):
+        for p in ("dfeats", "dW"):
+            if r["shape"].endswith(" " + p):
+                return p
+        return "whole"
+
+    def total(rs):
+        dev = sum(r["device_ms"] for r in rs)
+        bnd = sum(r["bound_ms"] for r in rs)
+        return dict(cases=len(rs), device_ms=dev, bound_ms=bnd,
+                    share=bnd / max(dev, 1e-9))
+    table = []
+    for name in KERNELS:
+        for pt in ("whole", "dfeats", "dW"):
+            w = [r for r in rows if r["kernel"] == name and part(r) == pt
+                 and "device_ms" in r]
+            a = [r for r in aligned if r["kernel"] == name and part(r) == pt]
+            if not w or not a:
+                continue
+            tw, ta = total(w), total(a)
+            table.append(dict(kernel=name, part=pt, waymo=tw, mk34=ta))
+            log(f"[waymo-kernels] {name} {pt}: Waymo cr1.6 {tw['cases']} "
+                f"cases, device {tw['device_ms']:.4f} ms, bound "
+                f"{tw['bound_ms']:.4f} ms ({tw['share']:.1%}); mk34_cr10 "
+                f"{ta['cases']} cases, device {ta['device_ms']:.4f} ms, "
+                f"bound {ta['bound_ms']:.4f} ms ({ta['share']:.1%})")
+    return table
+
+
+def waymo_kernel_phase(report, aligned):
+    """Every kernel case at Waymo mk34_cr16's shapes (mink_shapes of its
+    MODEL block, the _xyz yaml's 3-channel stem, and K7 / K8 at the last
+    up stage's width over level 2's table as well) on the pyramid of
+    Waymo frame SEED, forward and backward, each against its plain
+    version, twice, bit for bit, timed (the dfeats and dW passes alone
+    untimed); then each kernel's share of its bound beside mk34_cr10's
+    (`aligned`)."""
+    from openpcseg_torch.engine.task import SegTask, batch_to_device
+
+    task = SegTask(WAYMO_CFGS, classes(WAYMO_CFGS), device="cuda",
+                   compute_dtype=torch.bfloat16, seed=SEED)
+    _, pyr = task.preprocess(batch_to_device(scan_for(WAYMO_CFGS, SEED),
+                                             "cuda"))
+    subm, downs, ups, devox = mink_shapes(WAYMO_MODEL_CFG)
+    # the _xyz yaml's 3-channel stem; K7 / K8 also at the head's width
+    subm = subm + [(0, 3, subm[0][2])]
+    devox = devox + [(2, subm[-2][2])]
+    log(f"[waymo-kernels] pyramid of Waymo frame {SEED}: "
+        f"{int(pyr.points.valid.sum())} points, voxels per level "
+        f"{pyr.level_counts.tolist()}, caps {task.caps}; shapes {subm}, "
+        f"{downs}, {ups}, {devox}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    shapes = (subm, downs, ups, devox, "waymo ")
+    bwd = backward_cases(pyr, gen, *shapes)
+    alone = [c["label"].endswith((" dfeats", " dW")) for c in bwd]
+    passes = [c for c, a in zip(bwd, alone) if a]
+    rows = check_cases(kernel_cases(pyr, gen, *shapes)
+                       + [c for c, a in zip(bwd, alone) if not a],
+                       "waymo-kernels")
+    # the passes alone are checked untimed (the step profiles time them),
+    # to hold the run inside its time
+    rows += check_cases(passes, "waymo-passes", timed=False)
+    report["waymo_cases"] = rows
+    report["waymo_shares"] = share_lines(rows, aligned)
+    return rows
+
+
+def waymo_entry_phase(report, tmp):
+    """The user's entry points on Waymo mk34_cr16 at the yaml's batch 8: a
+    ray-cast Waymo tree (WAYMO_ENTRY_FRAMES), the train CLI for an epoch and
+    a resumed second, then the infer CLI on the _infer yaml streaming the
+    unlabeled sequence from the last checkpoint into DATA.OUTPUT_DIR (one
+    .npy a frame, one id a point); every MinkUNet counter over the phase.
+    Returns the launches and the tree's root."""
+    from openpcseg_torch.cli import infer, train
+    from openpcseg_torch.data.raycast_waymo import write_sequence, write_tree
+    from openpcseg_torch.ops import cuda_lib
+
+    n_train, n_val, n_seq = WAYMO_ENTRY_FRAMES
+    root = Path(tmp) / "waymo"
+    t0 = time.perf_counter()
+    write_tree(root, n_train, n_val, workers=SCAN_THREADS)
+    seq = write_sequence(root / "sequence", n_seq, workers=SCAN_THREADS)
+    log(f"[waymo-entry] ray-cast Waymo tree: {n_train} train, {n_val} val "
+        f"frames, a sequence of {n_seq} ({time.perf_counter() - t0:.1f} s "
+        f"of host time in {SCAN_THREADS} threads)")
+    out = Path(tmp) / "waymo_stream"
+    argv = ["--cfg_file", str(ROOT / WAYMO_CFG), "--log_dir",
+            f"{tmp}/waymo_logs", "--extra_tag", "chip_smoke",
+            "--log_interval", "1"]
+    cuda_lib.reset_counts()
+    t0 = time.perf_counter()
+    for epochs in (1, 2):
+        if train.main(argv + ["--epochs", str(epochs), "--set",
+                              "DATA.DATA_PATH", str(root)]) != 0:
+            raise SystemExit(f"Waymo entry point: train --epochs {epochs} "
+                             "failed")
+    logs, steps, evals, ckps = _run_logs(f"{tmp}/waymo_logs")
+    ckp = next(Path(tmp, "waymo_logs").glob("**/ckp/1.pt"))
+    if infer.main(["--cfg_file", str(ROOT / WAYMO_INFER_CFG), "--log_dir",
+                   f"{tmp}/waymo_infer_logs", "--extra_tag", "chip_smoke",
+                   "--ckp", str(ckp), "--save_pred", "--set",
+                   "DATA.DATA_PATH", seq, "DATA.OUTPUT_DIR", str(out)]) != 0:
+        raise SystemExit("Waymo entry point: streaming infer failed")
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    plain_on_cuda = dict(cuda_lib.PLAIN_ON_CUDA)
+    _, _, infer_evals, _ = _run_logs(f"{tmp}/waymo_infer_logs")
+    dumped = []
+    for i, f in enumerate(sorted(out.glob("*.npy"))):
+        ids = np.load(f)
+        frame = Path(seq, "first", f"{i:06d}.npy")
+        points = len(np.load(frame)) + len(np.load(
+            Path(seq, "second", frame.name)))
+        dumped.append(dict(file=f.name, ids=len(ids), points=points,
+                           legal=bool(ids.min() >= 0 and ids.max() < 23)))
+    step_ms = [r["step_time"] * 1e3 for r in steps]
+    med = statistics.median(step_ms)
+    mem = max(r.get("max_memory_allocated", 0) for r in steps)
+    log(f"[waymo-entry] train CLI on {WAYMO_CFG}, batch "
+        f"{WAYMO_OPTIM_CFG['BATCH_SIZE_PER_GPU']}: step ms "
+        f"{', '.join(f'{t:.1f}' for t in step_ms)} (median {med:.1f}), "
+        f"{WAYMO_OPTIM_CFG['BATCH_SIZE_PER_GPU'] * 1e3 / med:.2f} scans/s, "
+        f"max_memory_allocated {mem / 2**30:.2f} GiB, data_time "
+        f"{', '.join(f'{r["data_time"]:.3f}' for r in steps)} s; val mIoU "
+        f"{evals[-1]['val_miou'] if evals else float('nan'):.2f}; "
+        f"{wall:.1f} s for train, resume and the stream; dumps {dumped}; "
+        f"launches {launches}")
+    report["waymo_entry_point"] = dict(
+        steps=steps, evals=evals, infer_evals=infer_evals, checkpoints=ckps,
+        dumped=dumped, step_ms_median=med,
+        scans_per_s=WAYMO_OPTIM_CFG["BATCH_SIZE_PER_GPU"] * 1e3 / med,
+        max_memory_allocated=mem, wall_s=wall, launches=launches,
+        plain_on_cuda=plain_on_cuda)
+    faults = []
+    if "resumed from epoch 0" not in logs:
+        faults.append("the second train call did not resume from epoch 0")
+    n_steps = n_train // WAYMO_OPTIM_CFG["BATCH_SIZE_PER_GPU"] * 2
+    if [r["step"] for r in steps] != list(range(1, n_steps + 1)) or not all(
+            np.isfinite(r["loss"]) for r in steps):
+        faults.append(f"train steps {steps}")
+    if ckps != ["0.pt", "1.pt"] or len(evals) != 2 or len(infer_evals) != 1:
+        faults.append(f"checkpoints {ckps}, {len(evals)} train evals, "
+                      f"{len(infer_evals)} infer evals (want 0.pt, 1.pt, 2 "
+                      "and 1)")
+    if any(r["voxel_overflow"] for r in steps) or any(
+            r["val_voxel_overflow"] for r in evals + infer_evals):
+        faults.append("voxel_overflow > 0 in metrics.jsonl")
+    if len(dumped) != n_seq or not all(
+            d["ids"] == d["points"] and d["legal"] for d in dumped):
+        faults.append(f"the stream's dump is wrong: {dumped}")
+    missing = [k for k in MINK_COUNTERS if launches[k] == 0]
+    if missing or any(plain_on_cuda.values()):
+        faults.append(f"kernels never launched {missing}, or a plain version "
+                      f"ran on the card {plain_on_cuda}")
+    if faults:
+        raise SystemExit("Waymo entry-point phase: " + "; ".join(faults))
+    return launches, root
+
+
+def waymo_phases(report, tmp, aligned):
+    """Waymo MinkUNet mk34_cr16 on the card: its kernel cases, serving
+    (every forward counter on every request), the eval reference, the eval
+    profile and idle share, training (every counter on every step) and its
+    profile, the training reference over its ten draws under MinkUNet
+    mk34_cr10's rule, and the entry points at batch 8. Returns the cases,
+    the launches of serving and training, those of the entry phase, and
+    the tree's root."""
+    from openpcseg_torch.engine.task import SegTask
+
+    t0 = time.perf_counter()
+
+    def done(name):
+        report.setdefault("waymo_phase_s", {})[name] = (
+            time.perf_counter() - t0)
+        log(f"[time] waymo {name} done at "
+            f"{report['waymo_phase_s'][name]:.1f} s")
+    cast_scans(WAYMO_CFGS, range(SEED, SEED + REQUESTS + 2))
+    rows = waymo_kernel_phase(report, aligned)
+    done("kernels")
+    task = SegTask(WAYMO_CFGS, classes(WAYMO_CFGS), device="cuda",
+                   compute_dtype=torch.bfloat16, seed=SEED)
+    log(f"[waymo-serve] MinkUNet mk34_cr16 from {WAYMO_CFG}: "
+        f"{sum(p.numel() for p in task.model.parameters())} parameters, "
+        f"caps {task.caps}")
+    launches = serving_phase(task, report, "waymo-serve", FWD_COUNTERS,
+                             "waymo_")
+    eval_ms = profile_phase(task, report, "waymo_")
+    idle = 1.0 - eval_ms / report["waymo_p50_ms"]
+    log(f"[profile] waymo_eval_step device idle share {idle:.4f} (device "
+        f"{eval_ms:.3f} ms of the {report['waymo_p50_ms']:.3f} ms p50)")
+    report["waymo_eval_idle_share"] = idle
+    del task
+    done("serving")
+    reference_phase(report, WAYMO_CFGS, "waymo_reference")
+    train = training_phase(report, WAYMO_TRAIN_CFGS, "waymo-train",
+                           MINK_COUNTERS, "waymo_")
+    launches.update({k: v for k, v in train.items()
+                     if k not in FWD_COUNTERS})
+    done("training")
+    train_reference_phase(report, "Waymo")
+    done("train-reference")
+    entry, root = waymo_entry_phase(report, tmp)
+    report["waymo_phases_s"] = time.perf_counter() - t0
+    log(f"[waymo] the Waymo mk34_cr16 phases took "
+        f"{report['waymo_phases_s']:.1f} s")
+    return rows, launches, entry, root
+
+
+def yaml_cell(path, root, need, cudnn_tf32):
+    """One train step and one eval step of the yaml at `path` as it stands
+    (full width, batch 1) on the first batch of its own view over the tree
+    at `root` (train and val loaders): voxel_overflow 0 on both, finite
+    loss, hist summing to the valid points, and the counters `need`
+    launched (none at all where `need` is empty). Returns its record."""
+    from openpcseg_torch.config import CfgDict, cfg_from_yaml_file
+    from openpcseg_torch.data import build_dataloader
+    from openpcseg_torch.engine.task import SegTask, batch_to_device
+    from openpcseg_torch.ops import cuda_lib
+
+    cfgs = CfgDict()
+    cfg_from_yaml_file(str(ROOT / path), cfgs)
+    cfgs.DATA.DATA_PATH = str(root)
+    modality = cfgs.get("MODALITY", "voxel")
+    batches = {}
+    for training in (True, False):
+        _, loader = build_dataloader(
+            cfgs.DATA, modality, 1, training=training,
+            point_cap=cfgs.TPU.POINT_CAP_PER_SCAN, num_workers=1, seed=SEED)
+        batches[training] = batch_to_device(
+            {k: v for k, v in next(iter(loader)).items() if k != "name"},
+            "cuda")
+    tf32 = modality == "range" or cfgs.MODEL.NAME == "RPVNet"
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32 if tf32 else False
+    task = SegTask(dict(cfgs), classes(cfgs), device="cuda",
+                   compute_dtype=torch.bfloat16, seed=SEED,
+                   iters_per_epoch=ITERS_PER_EPOCH)
+    cuda_lib.reset_counts()
+    t0 = time.perf_counter()
+    m = task.train_step(batches[True])
+    out = task.eval_step(batches[False])
+    loss, hist = float(m["loss"]), out["hist"].cpu()
+    secs = time.perf_counter() - t0
+    torch.backends.cudnn.allow_tf32 = False
+    launches = dict(cuda_lib.LAUNCHES)
+    plain_on_cuda = dict(cuda_lib.PLAIN_ON_CUDA)
+    valid = batches[False]["p_valid" if modality == "range" else "valid"]
+    rec = dict(yaml=path, dataset=cfgs.DATA.DATASET, model=cfgs.MODEL.NAME,
+               parameters=sum(p.numel() for p in task.model.parameters()),
+               loss=loss, voxel_overflow=int(m["voxel_overflow"]),
+               eval_voxel_overflow=int(out["voxel_overflow"]),
+               hist_sum=int(hist.sum()), valid_points=int(valid.sum()),
+               seconds=secs, launches=launches)
+    log(f"[yamls] {path}: {rec['parameters']} parameters, loss {loss:.4f}, "
+        f"voxel_overflow {rec['voxel_overflow']} / "
+        f"{rec['eval_voxel_overflow']}, hist {rec['hist_sum']} of "
+        f"{rec['valid_points']} points, {secs:.1f} s; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    missing = [k for k in need if launches[k] == 0]
+    moved = [k for k, v in launches.items() if v] if not need else []
+    if (not np.isfinite(loss) or rec["voxel_overflow"]
+            or rec["eval_voxel_overflow"]
+            or rec["hist_sum"] != rec["valid_points"] or missing or moved
+            or any(plain_on_cuda.values())):
+        raise SystemExit(f"yaml cell {path}: {rec}; never launched "
+                         f"{missing}, launched {moved}, plain versions on "
+                         f"the card {plain_on_cuda}")
+    return rec
+
+
+def nuscenes_dump_phase(report, tmp, root):
+    """CENet 32 x 1088 through the CLIs on the nuScenes tree at batch 1
+    (an epoch), then the infer CLI with --save_pred --save_raw_ids: one
+    lidarseg/val/<sample_data_token>_lidarseg.bin per val sweep, uint8 raw
+    categories, one per pixel of its image, each a raw id of a class."""
+    from openpcseg_torch.cli import infer, train
+    from openpcseg_torch.data.nuscenes import NuscenesDataset
+    from openpcseg_torch.data.nuscenes_meta import LEARNING_MAP_INV
+    from openpcseg_torch.config import CfgDict
+
+    out = Path(tmp) / "nusc_preds"
+    argv = ["--cfg_file", str(ROOT / NUSC_CENET_CFG), "--log_dir",
+            f"{tmp}/nusc_logs", "--extra_tag", "chip_smoke", "--batch_size",
+            "1", "--log_interval", "1"]
+    sets = ["--set", "DATA.DATA_PATH", str(root)]
+    if train.main(argv + ["--epochs", "1"] + sets) != 0 or infer.main(
+            argv + ["--save_pred", "--save_raw_ids"] + sets
+            + ["DATA.OUTPUT_DIR", str(out)]) != 0:
+        raise SystemExit("nuScenes CENet CLIs failed")
+    tokens = {r["token"] for r in NuscenesDataset(CfgDict(
+        {"DATASET": "nuscenes", "DATA_PATH": str(root)}),
+        training=False).annos}
+    legal = set(LEARNING_MAP_INV.tolist())
+    files = sorted(out.glob("lidarseg/val/*_lidarseg.bin"))
+    dumped = [dict(file=f.name, ids=f.stat().st_size,
+                   legal=set(np.unique(np.fromfile(f, np.uint8)).tolist())
+                   <= legal) for f in files]
+    log(f"[nusc-dump] CENet submission dump: {dumped}")
+    report["nuscenes_dump"] = dumped
+    if ({f.name[:-len("_lidarseg.bin")] for f in files} != tokens
+            or not all(d["ids"] == 32 * 1088 and d["legal"]
+                       for d in dumped)):
+        raise SystemExit(f"nuScenes submission dump is wrong: {dumped}, "
+                         f"val tokens {sorted(tokens)}")
+
+
+def yaml_phases(report, tmp, waymo_root, cudnn_tf32):
+    """Every other shipped Waymo and nuScenes yaml (YAML_CELLS), one train
+    and one eval step each (yaml_cell), on the Waymo tree and a ray-cast
+    nuScenes tree; then nuScenes CENet's submission dump. Returns the
+    launches summed over the cells."""
+    from openpcseg_torch.data.raycast_nuscenes import write_tree
+
+    t0 = time.perf_counter()
+    nusc = write_tree(Path(tmp) / "nuscenes", *NUSC_SWEEPS)
+    cells, total = [], {}
+    for path, need in YAML_CELLS:
+        root = waymo_root if "/waymo/" in path else nusc
+        rec = yaml_cell(path, root, need, cudnn_tf32)
+        cells.append(rec)
+        for k, v in rec["launches"].items():
+            total[k] = total.get(k, 0) + v
+    nuscenes_dump_phase(report, tmp, nusc)
+    report["yaml_cells"] = cells
+    report["yaml_phases_s"] = time.perf_counter() - t0
+    log(f"[yamls] {len(cells)} yamls, one train and one eval step each, and "
+        f"the nuScenes dump: {report['yaml_phases_s']:.1f} s")
+    return total
+
+
 # == the range-view models: each yaml of tools/cfgs/range/semantic_kitti/
 # as it stands (MODEL and OPTIM: AdamW + onecycle), full width, the 64 x
 # 2048 image, float32 as in JAX. Their dense convs run on cuDNN at
@@ -2679,9 +3145,8 @@ def range_request(seed, n_points=N_POINTS, z_shift=0.0):
     (p_label, p_px, p_py, p_range over n_points, p_valid): a numpy batch
     of 1."""
     from openpcseg_torch.data.range_view import pack_scan_tensor, range_project
-    from openpcseg_torch.data.raycast import raycast_batch
 
-    b = raycast_batch(seed, 1, cap=n_points)
+    b = scan_for(CFGS, seed, cap=n_points)
     v = b["valid"][0]
     n = int(v.sum())
     xyz = b["xyz"][0][v] - np.float32([0.0, 0.0, z_shift])
@@ -3048,7 +3513,8 @@ def range_phases(report, tmp, tree, cudnn_tf32):
 
 def kernel_report(rows, launches, entry_launches, spv_launches,
                   spv_entry_launches, cyl_launches, cyl_entry_launches,
-                  range_launches, rpv_launches, rpv_entry_launches):
+                  range_launches, rpv_launches, rpv_entry_launches,
+                  waymo_launches, waymo_entry_launches, yaml_launches):
     """The kernels JSON line: per kernel its launches on the main paths
     (MinkUNet's serving and training phases, SPVCNN's, whose K7 and K8
     also count the launches of its mean-voxelize, and Cylinder3D's), over
@@ -3061,14 +3527,17 @@ def kernel_report(rows, launches, entry_launches, spv_launches,
     backward, K7 / K8 its refinement gather / its backward); RPVNet's
     launches (its range fusion's included) and its heaviest case at its
     voxel shapes; and its launches over the range phases, which run none
-    of them. Then a row for each K7 / K8 route of RPVNet's range fusion
-    (RANGE_FUSION_ROWS): its launches on RPVNet's serving and training,
-    its heaviest case, bound and library call."""
+    of them; Waymo mk34_cr16's launches (serving and training, the entry
+    phase at batch 8) and its heaviest case at the cr 1.6 widths, and the
+    launches over the other Waymo / nuScenes yamls' cells. Then a row for
+    each K7 / K8 route of RPVNet's range fusion (RANGE_FUSION_ROWS): its
+    launches on RPVNet's serving and training, its heaviest case, bound
+    and library call."""
     kernels = []
     for name, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name
                 and not r["shape"].startswith(("voxelize_mean", "cyl",
-                                               "rpv"))]
+                                               "rpv", "waymo"))]
         whole = [r for r in mine
                  if not r["shape"].endswith((" dfeats", " dW"))]
         heavy = max(whole, key=lambda r: r["plain_ms"])
@@ -3090,6 +3559,10 @@ def kernel_report(rows, launches, entry_launches, spv_launches,
             range_launches=sum(range_launches[k] for k in
                                (meta["counter"], meta.get("vmean_counter"),
                                 *cyl) if k),
+            waymo_launches=waymo_launches[meta["counter"]],
+            waymo_entry_launches=waymo_entry_launches[meta["counter"]],
+            yaml_launches=sum(yaml_launches.get(k, 0) for k in set(
+                meta["rpv_counters"] + cyl)),
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=heavy["ms"], plain_ms=heavy["plain_ms"],
             device_ms=heavy["device_ms"], bound_ms=heavy["bound_ms"],
@@ -3107,11 +3580,12 @@ def kernel_report(rows, launches, entry_launches, spv_launches,
                             f"{part}_bound_ms": h["bound_ms"],
                             f"{part}_shape": h["shape"]})
         for tag, prefix in (("vmean", "voxelize_mean"), ("cylinder", "cyl"),
-                            ("rpvnet", "rpv L")):
+                            ("rpvnet", "rpv L"), ("waymo", "waymo ")):
             got = [r for r in rows if r["kernel"] == name
                    and r["shape"].startswith(prefix)]
-            if got:
-                h = max(got, key=lambda r: r["device_ms"])
+            if got:     # the heaviest of the timed cases
+                h = max((r for r in got if "device_ms" in r),
+                        key=lambda r: r["device_ms"])
                 row.update({f"{tag}_max_abs_err": max(
                     r["max_abs_err"] for r in got), **{
                         f"{tag}_{k}": h[k] for k in (
@@ -3184,6 +3658,7 @@ def main() -> int:
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     report = {"card": card, "torch": torch.__version__}
+    t_start = time.perf_counter()
 
     t0 = time.perf_counter()
     cuda_lib.lib()
@@ -3237,12 +3712,21 @@ def main() -> int:
         phase_done("rpvnet")
         range_launches = range_phases(report, tmp, tree, cudnn_tf32)
         phase_done("range")
-    rows += spv_rows + cyl_rows + rpv_rows
+        waymo_rows, waymo_launches, waymo_entry_launches, root = (
+            waymo_phases(report, tmp, rows))
+        phase_done("waymo")
+        yaml_launches = yaml_phases(report, tmp, root, cudnn_tf32)
+        phase_done("yamls")
+    rows += spv_rows + cyl_rows + rpv_rows + waymo_rows
 
     kernels = kernel_report(rows, launches, entry_launches, spv_launches,
                             spv_entry_launches, cyl_launches,
                             cyl_entry_launches, range_launches, rpv_launches,
-                            rpv_entry_launches)
+                            rpv_entry_launches, waymo_launches,
+                            waymo_entry_launches, yaml_launches)
+    report["total_s"] = time.perf_counter() - t_start
+    log(f"[time] chip_smoke.py took {report['total_s']:.1f} s in all, the "
+        f"kernels' build included")
     args.report.parent.mkdir(parents=True, exist_ok=True)
     args.report.write_text(json.dumps(report, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -38,9 +38,11 @@ def parse_config(argv=None):
                              "DATA.OUTPUT_DIR")
     parser.add_argument("--save_raw_ids", action="store_true",
                         help="with --save_pred: remap train ids back to raw "
-                             "dataset label ids (inverse LEARNING_MAP) and "
-                             "write SemanticKITTI submission-format .label "
-                             "files under sequences/<seq>/predictions/")
+                             "dataset label ids (inverse LEARNING_MAP) in the "
+                             "benchmark's submission layout: SemanticKITTI "
+                             ".label files under sequences/<seq>/"
+                             "predictions/, nuScenes lidarseg/val/"
+                             "<token>_lidarseg.bin")
     parser.add_argument("--tta", action="store_true",
                         help="10-vote test-time augmentation (not ported "
                              "yet: raises)")
@@ -58,21 +60,32 @@ def parse_config(argv=None):
 
 def dump_predictions(trainer, out_dir: Path, raw_ids: bool = False) -> int:
     """Per-scan argmax of the val split, one file per scan: ``<seq>_<frame>
-    .npy`` (int32 train ids), or with raw_ids the SemanticKITTI submission
-    layout ``sequences/<seq>/predictions/<frame>.label`` (uint32 raw ids
-    through the inverse LEARNING_MAP): a voxel model's per valid point, a
-    range model's per pixel of its H x W image. Padded eval tails are
-    skipped.
+    .npy`` (int32 train ids; ``<count>.npy`` for a scan whose name is not
+    ``<seq>/velodyne/<frame>.bin``, as each frame of a Waymo sequence), or
+    with raw_ids a benchmark's submission layout: SemanticKITTI's
+    ``sequences/<seq>/predictions/<frame>.label`` (uint32 raw ids through
+    the inverse LEARNING_MAP), nuScenes-lidarseg's
+    ``lidarseg/val/<sample_data_token>_lidarseg.bin`` (uint8 raw category
+    ids). A voxel model's predictions are per valid point, a range model's
+    per pixel of its H x W image. Padded eval tails are skipped.
     Returns the number of files written."""
     inv_lut = None
+    nusc_tokens = None
     if raw_ids:
         ds = trainer.cfgs.DATA.DATASET
-        if ds not in ("semantickitti", "scribblekitti"):
+        if ds in ("semantickitti", "scribblekitti"):
+            from openpcseg_torch.data.semantickitti_meta import (
+                LEARNING_MAP_INV_LUT)
+            inv_lut = LEARNING_MAP_INV_LUT
+        elif ds == "nuscenes":
+            from openpcseg_torch.data.nuscenes_meta import LEARNING_MAP_INV
+            inv_lut = LEARNING_MAP_INV
+            src = getattr(trainer.val_set, "source", trainer.val_set)
+            nusc_tokens = {r["path"]: r["token"]
+                           for r in getattr(src, "annos", [])}
+        else:
             raise SystemExit(f"--save_raw_ids: no inverse label map for "
-                             f"dataset '{ds}' in the port")
-        from openpcseg_torch.data.semantickitti_meta import (
-            LEARNING_MAP_INV_LUT)
-        inv_lut = LEARNING_MAP_INV_LUT
+                             f"dataset '{ds}'")
 
     trainer.init_or_resume()
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -90,7 +103,15 @@ def dump_predictions(trainer, out_dir: Path, raw_ids: bool = False) -> int:
                 valid[i])]
             parts = str(name).replace("\\", "/").split("/")
             named = len(parts) >= 3 and parts[-1].endswith(".bin")
-            if inv_lut is not None:
+            if nusc_tokens is not None:
+                tok = nusc_tokens.get(str(name))
+                if tok is None:
+                    continue
+                pdir = out_dir / "lidarseg" / "val"
+                pdir.mkdir(parents=True, exist_ok=True)
+                raw = inv_lut[p.astype(np.int64)].astype(np.uint8)
+                raw.tofile(pdir / f"{tok}_lidarseg.bin")
+            elif inv_lut is not None:
                 seq = parts[-3] if named else "00"
                 frame = parts[-1][:-4] if named else f"{count:06d}"
                 pdir = out_dir / "sequences" / seq / "predictions"

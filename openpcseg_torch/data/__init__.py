@@ -2,18 +2,24 @@
 
 Counterpart of ``openpcseg_tpu/data/__init__.py``: ``build_dataloader``
 maps (modality, dataset) to a view and wraps it in a ``BatchLoader``. The
-port has the voxel, fusion, cylinder and range views of SemanticKITTI and
-ScribbleKITTI (the cylinder view is the voxel view: Cylinder3D partitions
-the points on the device, ``core.batch.cylinder_points_batch``);
-every other view of the JAX package raises ``NotImplementedError`` naming
-the ROADMAP item that ports it. ``raycast`` and ``raycast_kitti`` make surrogate scans
-and trees without a dataset.
+port has every view of the JAX package: the voxel, fusion, cylinder and
+range views of SemanticKITTI and ScribbleKITTI, the voxel, cylinder and
+fusion views of Waymo (``waymo.py``) and the voxel, cylinder, range and
+fusion views of nuScenes (``nuscenes.py``). A cylinder view is the voxel
+view: Cylinder3D partitions the points on the device
+(``core.batch.cylinder_points_batch``). ``raycast`` and
+``raycast_kitti`` / ``raycast_waymo`` / ``raycast_nuscenes`` make surrogate
+scans and trees in each dataset's layout without a dataset.
 """
 from __future__ import annotations
 
 from .fusion_view import SemkittiFusionDataset
+from .nuscenes import (NuscenesDataset, NuscFusionDataset,  # noqa: F401
+                       NuscRangeViewDataset, NuscVoxelDataset)
 from .range_view import SemkittiRangeViewDataset
 from .voxel_view import BatchLoader, SemkittiVoxelDataset, collate  # noqa: F401
+from .waymo import (WAYMO_CLASS_NAMES, WaymoDataset,  # noqa: F401
+                    WaymoFusionDataset, WaymoInferDataset, WaymoVoxelDataset)
 
 _VIEWS = {
     ("voxel", "semantickitti"): SemkittiVoxelDataset,
@@ -24,14 +30,13 @@ _VIEWS = {
     ("cylinder", "scribblekitti"): SemkittiVoxelDataset,
     ("range", "semantickitti"): SemkittiRangeViewDataset,
     ("range", "scribblekitti"): SemkittiRangeViewDataset,
-}
-# the JAX package's other views, and the ROADMAP.md Queue 1 item that
-# ports each
-_NOT_PORTED = {
-    ("voxel", "waymo"): 15, ("cylinder", "waymo"): 15,
-    ("fusion", "waymo"): 15, ("voxel", "nuscenes"): 15,
-    ("cylinder", "nuscenes"): 15, ("range", "nuscenes"): 15,
-    ("fusion", "nuscenes"): 15,
+    ("voxel", "waymo"): WaymoVoxelDataset,
+    ("cylinder", "waymo"): WaymoVoxelDataset,
+    ("fusion", "waymo"): WaymoFusionDataset,
+    ("voxel", "nuscenes"): NuscVoxelDataset,
+    ("cylinder", "nuscenes"): NuscVoxelDataset,
+    ("range", "nuscenes"): NuscRangeViewDataset,
+    ("fusion", "nuscenes"): NuscFusionDataset,
 }
 
 
@@ -41,13 +46,15 @@ def num_classes_for(dataset: str) -> int:
 
 
 def dataset_meta(dataset: str):
-    """(class_names, cls_num_pts) of a dataset, (None, None) where the
-    port has no table for it."""
+    """(class_names, cls_num_pts) of a dataset; cls_num_pts is None where
+    no published table exists, both None for an unknown dataset."""
+    from .nuscenes_meta import CLASS_NAMES as NUSC_CLASS_NAMES
     from .semantickitti_meta import CLASS_NAMES, CLS_NUM_PTS
 
     return {"semantickitti": (CLASS_NAMES, CLS_NUM_PTS),
-            "scribblekitti": (CLASS_NAMES, CLS_NUM_PTS)}.get(
-                dataset, (None, None))
+            "scribblekitti": (CLASS_NAMES, CLS_NUM_PTS),
+            "waymo": (WAYMO_CLASS_NAMES, None),
+            "nuscenes": (NUSC_CLASS_NAMES, None)}.get(dataset, (None, None))
 
 
 def rank_and_world() -> tuple:
@@ -68,10 +75,6 @@ def build_dataloader(data_cfgs, modality: str, batch_size: int, *,
     process loads its slice of it. Eval tails are padded to the full batch
     with all-invalid samples named ``<pad>``."""
     key = (modality, data_cfgs.DATASET)
-    if key in _NOT_PORTED:
-        raise NotImplementedError(
-            f"the {modality} view of {data_cfgs.DATASET!r} is not ported yet "
-            f"(ROADMAP.md Queue 1 item {_NOT_PORTED[key]})")
     if key not in _VIEWS:
         raise NotImplementedError(
             f"no dataset view for modality={modality!r}, "

@@ -92,23 +92,29 @@ def raycast_scan(
     n_azimuth: int = 2048,
     max_range: float = 75.0,
     num_class: int = 20,
+    fov_up: float = 3.0,
+    fov_down: float = -25.0,
+    sensor_z: float = 1.8,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Returns (xyz [N,3] f32, feats [N,4] = xyz+intensity, labels [N] i32).
 
     N <= n_beams * n_azimuth (rays beyond max_range are dropped, like real
-    scans dropping no-return rays).
+    scans dropping no-return rays). The beams span [fov_down, fov_up]
+    degrees of elevation from a sensor `sensor_z` metres above the ground
+    plane z = 0; the defaults are KITTI's HDL-64 (the scans of the JAX
+    package's ``raycast_scan``, which has no such arguments).
     """
     rng = np.random.default_rng(seed)
 
     # --- rays: KITTI HDL-64 fov_up=3, fov_down=-25 (laserscan.py:31) -----
-    elev = np.deg2rad(np.linspace(3.0, -25.0, n_beams))
+    elev = np.deg2rad(np.linspace(fov_up, fov_down, n_beams))
     azim = np.linspace(-np.pi, np.pi, n_azimuth, endpoint=False)
     el, az = np.meshgrid(elev, azim, indexing="ij")
     d = np.stack(
         [np.cos(el) * np.cos(az), np.cos(el) * np.sin(az), np.sin(el)],
         axis=-1,
     ).reshape(-1, 3)
-    o = np.array([0.0, 0.0, 1.8])
+    o = np.array([0.0, 0.0, sensor_z])
 
     nray = d.shape[0]
     best_t = np.full(nray, np.inf)

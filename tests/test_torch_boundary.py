@@ -42,6 +42,10 @@ SLICE_MODULES = [
     "openpcseg_torch.cli.golden_run", "openpcseg_torch.models.spvcnn",
     "openpcseg_torch.data.fusion_view", "openpcseg_torch.models.cylinder3d",
     "openpcseg_torch.models.rpvnet", "openpcseg_torch.ops.range_fusion",
+    "openpcseg_torch.data.waymo", "openpcseg_torch.data.waymo_conversion",
+    "openpcseg_torch.data.nuscenes", "openpcseg_torch.data.nuscenes_meta",
+    "openpcseg_torch.data.raycast_waymo",
+    "openpcseg_torch.data.raycast_nuscenes",
 ]
 
 
@@ -106,6 +110,38 @@ def test_chip_smoke_rpvnet_is_the_mk34_cr17_5_config():
     tpu = {k: v for k, v in cfg["TPU"].items() if k != "COMPUTE_DTYPE"}
     assert chip_smoke.RPV_CFGS["TPU"] == tpu
     assert chip_smoke.N_POINTS == cfg["TPU"]["POINT_CAP_PER_SCAN"]
+
+
+def test_chip_smoke_waymo_is_the_mk34_cr16_config():
+    """chip_smoke.py's Waymo main path is the shipped mk34_cr16 yaml as it
+    stands (its _infer twin differs only in the DATA keys of streaming),
+    and its kernel shapes come from the yaml's widths; its yaml cells are
+    every other shipped Waymo / nuScenes yaml."""
+    import chip_smoke
+    cfg = yaml.safe_load((ROOT / chip_smoke.WAYMO_CFG).read_text())
+    assert chip_smoke.WAYMO_MODEL_CFG == cfg["MODEL"]
+    assert chip_smoke.WAYMO_TRAIN_CFGS["OPTIM"] == cfg["OPTIM"]
+    assert chip_smoke.WAYMO_CFGS["DATA"] == {
+        k: cfg["DATA"][k] for k in ("DATASET", "VOXEL_SIZE")}
+    tpu = {k: v for k, v in cfg["TPU"].items() if k != "COMPUTE_DTYPE"}
+    assert chip_smoke.WAYMO_CFGS["TPU"] == tpu
+    infer_cfg = yaml.safe_load((ROOT / chip_smoke.WAYMO_INFER_CFG)
+                               .read_text())
+    assert infer_cfg["DATA"]["USE_INFER_DATA"]
+    assert {k: v for k, v in infer_cfg.items() if k != "DATA"} == {
+        k: v for k, v in cfg.items() if k != "DATA"}
+    subm, downs, ups, devox = chip_smoke.mink_shapes(cfg["MODEL"])
+    assert subm[:3] == [(0, 5, 51), (0, 51, 51), (1, 51, 51)]
+    assert (3, 613, 409) in subm and (0, 204, 153) in subm
+    assert downs == [(1, 51), (2, 51), (3, 102), (4, 204)]
+    assert ups == [(3, 409, 409), (2, 409, 204), (1, 204, 153),
+                   (0, 153, 153)]
+    assert devox == [(4, 409), (2, 204)]
+    shipped = {str(p.relative_to(ROOT)) for d in ("waymo", "nuscenes")
+               for p in ROOT.glob(f"tools/cfgs/*/{d}/*.yaml")}
+    cells = {p for p, _ in chip_smoke.YAML_CELLS}
+    assert cells | {chip_smoke.WAYMO_CFG, chip_smoke.WAYMO_INFER_CFG} == (
+        shipped) and len(shipped) == 13
 
 
 def test_range_fusion_wrappers_take_their_kernels_on_a_cuda_tensor(

@@ -646,3 +646,81 @@ def test_range_pools_backward(block):
         grads[dev] = x.grad.double().cpu()
     err = (grads["cuda"] - grads["cpu"]).abs().max()
     assert err <= 1e-4 * grads["cpu"].abs().max(), err
+
+
+# == Waymo MinkUNet mk34_cr16: the cr 1.6 widths (51-613), where every conv
+# takes its kernel's ragged path (Cin or Cout not a multiple of 8), on the
+# pyramid of an 8192-point ray-cast Waymo frame at 0.1 m
+import chip_smoke  # noqa: E402
+
+W_SUBM, W_DOWNS, W_UPS, W_DEVOX = chip_smoke.mink_shapes(
+    chip_smoke.WAYMO_MODEL_CFG)
+W_SUBM = W_SUBM + [(0, 3, 51)]          # the _xyz yaml's stem
+W_DEVOX = W_DEVOX + [(2, 153)]          # the head's width
+
+
+@pytest.fixture(scope="module")
+def waymo_pyr():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from openpcseg_torch.data.raycast_waymo import frame_batch
+    cfgs = dict(chip_smoke.WAYMO_CFGS, TPU={
+        "VOXEL_CAP_PER_SCAN": 8192, "VOXEL_CAP_RATIOS": [1.0] * 5})
+    task = SegTask(cfgs, 23, device="cuda", compute_dtype=torch.bfloat16)
+    _, p = task.preprocess(batch_to_device(frame_batch(0, 8192), "cuda"))
+    return p
+
+
+@pytest.mark.parametrize("level,cin,cout", W_SUBM)
+def test_waymo_subm_kernels(waymo_pyr, level, cin, cout):
+    """K1, and K2's dfeats and dW, at a cr 1.6 width pair."""
+    g = torch.Generator(device="cuda").manual_seed(10)
+    lv = waymo_pyr.levels[level]
+    x = _feats(lv, cin, g)
+    w = _rand(27, cin, cout, gen=g)
+    _close(_twice(subm_conv.subm_conv, x, w, lv.subm_kmap),
+           subm_conv.subm_conv_plain(x, w, lv.subm_kmap))
+    _bwd_check(subm_conv.subm_conv_bwd, subm_conv.subm_conv_bwd_plain,
+               (_feats(lv, cout, g).float(), x, w.float(), lv.subm_kmap))
+
+
+@pytest.mark.parametrize("level,c", W_DOWNS)
+def test_waymo_down_kernels(waymo_pyr, level, c):
+    """K3, and K6's dfeats and dW, at a cr 1.6 width."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    fine, coarse = waymo_pyr.levels[level - 1], waymo_pyr.levels[level]
+    x, w = _feats(fine, c, g), _rand(8, c, c, gen=g)
+    _close(_twice(updown.down_conv, x, w, coarse.down_kmap),
+           updown.down_conv_plain(x, w, coarse.down_kmap))
+    _bwd_check(updown.down_conv_bwd, updown.down_conv_bwd_plain,
+               (_feats(coarse, c, g).float(), x, w.float(), coarse.down_kmap,
+                fine.up_kmap), (coarse.parity_plan,))
+
+
+@pytest.mark.parametrize("level,cin,cout", W_UPS)
+def test_waymo_up_kernels(waymo_pyr, level, cin, cout):
+    """K4, and K5's dfeats and dW, at a cr 1.6 width pair."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    fine, coarse = waymo_pyr.levels[level], waymo_pyr.levels[level + 1]
+    x, w = _feats(coarse, cin, g), _rand(8, cin, cout, gen=g)
+    plan = coarse.parity_plan
+    got, again = (updown.up_conv(x, w, fine.up_kmap, plan),
+                  updown.up_conv(x, w, fine.up_kmap, plan))
+    _parent_check(got, again, updown.up_conv_plain(x, w, fine.up_kmap), plan)
+    _bwd_check(updown.up_conv_bwd, updown.up_conv_bwd_plain,
+               (_feats(fine, cout, g).float(), x, w.float(), fine.up_kmap,
+                coarse.down_kmap))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("level,c", W_DEVOX)
+def test_waymo_devox_kernels(waymo_pyr, level, c, dtype):
+    """K7 and K8 at a cr 1.6 width (one channel a lane)."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    t = waymo_pyr.devox[level]
+    x = _feats(waymo_pyr.levels[level], c, g).to(dtype)
+    _close(_twice(devox.devoxelize, x, t.idx, t.weights),
+           devox.devoxelize_plain(x, t.idx, t.weights))
+    d = _rand(t.idx.shape[1], c, gen=g).to(dtype)
+    _close(_twice(devox.devoxelize_bwd, d, t),
+           _devox_bwd(d, t.idx, t.weights, t.num_voxels))

@@ -196,18 +196,38 @@ def test_cylinder_loader_yields_jax_batches_over_two_epochs(tree, training):
         jset.resample()
 
 
-def test_loader_rank_and_unported_views(tree):
+def test_loader_rank_and_unported_views(tree, tmp_path):
+    """The rank and world of a loader, and the Waymo and nuScenes views
+    that once raised: each builds over a mini tree of its dataset, is
+    JAX's view class with JAX's class names, and dataset_meta names the
+    dataset's class table (their batches: tests/test_torch_waymo.py,
+    tests/test_torch_nuscenes.py)."""
+    from mini_trees import make_mini_waymo
+    from test_nuscenes import make_mini_nuscenes
+
     tcfg, _ = _data_cfgs(tree)
     assert tdata.rank_and_world() == (0, 1)
     _, load = tdata.build_dataloader(tcfg, "voxel", 2, num_workers=1)
     assert (load.process_index, load.local_bs) == (0, 2)
-    for modality, ds, item in (("range", "nuscenes", 15),
-                               ("cylinder", "waymo", 15),
-                               ("fusion", "waymo", 15),
-                               ("voxel", "waymo", 15)):
-        cfg, _ = _data_cfgs(tree, DATASET=ds)
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            tdata.build_dataloader(cfg, modality, 2)
+    roots = {"waymo": make_mini_waymo(tmp_path / "waymo", n_frames=2,
+                                      n_pts=500),
+             "nuscenes": make_mini_nuscenes(str(tmp_path / "nusc"),
+                                            n_pts=500)}
+    for modality, ds in (("range", "nuscenes"), ("cylinder", "waymo"),
+                         ("fusion", "waymo"), ("voxel", "waymo")):
+        d = {"DATASET": ds, "DATA_PATH": roots[ds], "VOXEL_SIZE": 0.1}
+        tset, tload = tdata.build_dataloader(CfgDict(d), modality, 2,
+                                             num_workers=1)
+        jset, _ = jdata.build_dataloader(JaxCfgDict(d), modality, 2,
+                                         num_workers=1)
+        assert type(tset).__name__ == type(jset).__name__
+        assert tset.class_names == jset.class_names
+        assert len(tload) >= 1
+        names, _ = tdata.dataset_meta(ds)
+        assert names == jdata.dataset_meta(ds)[0]
+        assert len(names) == tdata.num_classes_for(ds)
+        if modality != "range":   # JAX's nuScenes range view keeps
+            assert tset.class_names == names   # SemanticKITTI's names
 
 
 def test_raycast_tree_has_the_scripts_bytes(tmp_path):

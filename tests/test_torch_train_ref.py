@@ -53,13 +53,14 @@ from openpcseg_torch.utils import convert
 from openpcseg_torch.utils.convert import jax_params_to_torch
 
 
-def torch_to_jax(model, params, batch_stats, cfgs=chip_smoke.TRAIN_CFGS):
+def torch_to_jax(model, params, batch_stats, cfgs=chip_smoke.TRAIN_CFGS,
+                 num_class=chip_smoke.NUM_CLASS):
     """The flax variables (numpy trees shaped as params / batch_stats, whose
     leaves need only a shape and a dtype) that jax_params_to_torch would
     turn into `model`'s tensors (a port MinkUNet, SPVCNN or RPVNet built
-    from `cfgs`): its walk is recorded once, then each put is undone (a
-    reshape, a Dense kernel's transpose, a 2-D conv kernel's OIHW back to
-    HWIO)."""
+    from `cfgs` for `num_class` classes): its walk is recorded once, then
+    each put is undone (a reshape, a Dense kernel's transpose, a 2-D conv
+    kernel's OIHW back to HWIO)."""
     log = []
 
     class Recorder(convert._Loader):
@@ -76,7 +77,7 @@ def torch_to_jax(model, params, batch_stats, cfgs=chip_smoke.TRAIN_CFGS):
                                       tree)
 
     trees = {"params": zeros(params), "batch_stats": zeros(batch_stats)}
-    twin = SegTask(cfgs, chip_smoke.NUM_CLASS, device="cpu",
+    twin = SegTask(cfgs, num_class, device="cpu",
                    voxel_cap_per_scan=8192).model
     saved = convert._Loader
     convert._Loader = Recorder
