@@ -166,7 +166,32 @@ Phases, in order (any failure exits non-zero and prints no result line):
      (voxel_overflow 0, finite loss, hist = valid points, its family's
      counters launched, none for CENet), then nuScenes CENet through the
      CLIs at batch 1 and its submission dump (lidarseg/val/
-     <token>_lidarseg.bin, uint8 raw ids). The run's total time is logged.
+     <token>_lidarseg.bin, uint8 raw ids);
+ 17. tta phase: TTA_VOTES-vote test-time augmentation of MinkUNet
+     mk34_cr10 at full width over the entry tree's 2 val scans (the
+     view's own votes, one batched forward a scan, every forward kernel
+     launched by tta_scan_hist alone, its counts read just after it):
+     voxel_overflow 0, the histogram summing to the valid points, the
+     host time of building a scan's votes, the batched votes against
+     per-vote forwards of a batch-1 task sharing the model (max |dp| <=
+     TTA_VOTE_TOL, argmax agreement >= TTA_VOTE_AGREE), one scan's host
+     wall and device time and the share of its vote mean, argmax and
+     histogram; the same votes of an 8192-point scan on the card and on
+     the CPU in float32 (the serving rule: 0.1 of the range, agreement >=
+     0.9); one scan each of Cylinder3D cy480_cr10 and CENet 64 x 2048; the
+     infer CLI with --tta ending in a logged mIoU;
+ 18. dp phase: DP_WORLD ranks sharing cuda:0 over gloo
+     (openpcseg_torch/parallel/worker.py), MinkUNet mk34_cr10 at full
+     width, one ray-cast scan a rank, DP_STEPS steps: every kernel
+     launched on every rank and step, both ranks' parameters bit-equal
+     after the steps, the first step against its one-process exact
+     equivalent (DP_LOSS_REL, the cosines within DP_SPREAD times the
+     exact step's own spread under a swap of its scans, the gradient norm
+     within DP_NORM_REL), the summed eval
+     histogram equal to the ranks' own, the sharded TTA histogram equal to
+     one rank's; then openpcseg_torch/cli/dist_train.sh 2 (an epoch, rank
+     0's checkpoint, a resumed second epoch, gloo) and dist_train.sh 1
+     (NCCL). The run's total time is logged.
 Every kernel case carries CUDA-event ms of the wrapper and of the plain
 version, the kernel's profiler device ms, and its bound (bound_ms: bytes
 over the memory rate or operations over the peak rate, whichever is
@@ -174,7 +199,8 @@ larger, from the case's own shapes and hits; a profiler window that
 reads less than the bound is taken again); K7 and
 K8 also the time of torch.sparse.mm over the same table as a CSR matrix (library_ms), which the port never calls.
 With --cases-only the script stops after the kernel and backward-kernel
-cases (the kernel half of an A/B call). Then the kernel JSON line, the
+cases (the kernel half of an A/B call); with --dp-only it builds and runs
+the dp phase's steps and histograms alone (dp_steps_phase). Then the kernel JSON line, the
 card line and the result line.
 The full report (every kernel case, request, step and profiler row) goes
 to --report, by default build/openpcseg_torch/chip_smoke.json.
@@ -187,6 +213,7 @@ import dataclasses
 import hashlib
 import inspect
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -3511,10 +3538,501 @@ def range_phases(report, tmp, tree, cudnn_tf32):
     return {k: v + cuda_lib.LAUNCHES[k] for k, v in launches.items()}
 
 
+# == test-time augmentation (tta_phase) and data parallel (dp_phase)
+TTA_VOTES = 10
+# the batched votes against per-vote forwards of a batch-1 task sharing the
+# model, both bf16 through the kernels on the card: the rows are the same
+# and only a kernel's plan (its split over the offsets, chosen by the row
+# count) sums in another order, so bf16 roundings flip on a few
+# activations. Fixed before the first card run: max |p_batched - p_vote|
+# <= TTA_VOTE_TOL over every vote and point, argmax agreement >=
+# TTA_VOTE_AGREE over the valid points of every vote
+TTA_VOTE_TOL = 0.05
+TTA_VOTE_AGREE = 0.98
+DP_WORLD = 2           # ranks sharing cuda:0 over gloo
+DP_STEPS = 3
+# the data-parallel step (2 ranks, one scan each) against its one-process
+# exact equivalent on the card (worker.exact_train_step: the 2-scan batch,
+# each scan's loss, their mean), both bf16 through the kernels; only the
+# order of the BN statistics' sums and the kernels' plans differ. The loss
+# within DP_LOSS_REL of the exact step's. The bf16 step of this network
+# moves under a change of summation order alone: on an H100 the exact step
+# with its two scans swapped read whole-gradient and worst conv cosines of
+# 0.98996 and 0.95855 against itself (cosines of 0.99 and 0.95, fixed for
+# the DP step before it first ran there, lay inside that spread). So the
+# cosines are held to DP_SPREAD times the exact step's own spread under the
+# swap, measured in the same run: 1 - cos <= DP_SPREAD x (1 - cos_swap),
+# and never below TRAIN_GROSS's cosines (JAX's bf16-against-f32 floor)
+DP_LOSS_REL = 2e-3
+DP_SPREAD = 2.0
+# the cosines cannot see a gradient's scale: rank 0's gradient norm before
+# the clip within DP_NORM_REL of the exact step's (a sum over the ranks in
+# place of their mean reads 2x); fixed before its first card run
+DP_NORM_REL = 0.05
+
+
+def yaml_view(path, tree):
+    """(cfgs without OPTIM, val view) of the shipped yaml at `path` over
+    the ray-cast `tree`."""
+    from openpcseg_torch.cli.train import parse_config
+    from openpcseg_torch.data import build_dataloader
+
+    _, cfgs = parse_config(["--cfg_file", str(ROOT / path), "--set",
+                            "DATA.DATA_PATH", tree])
+    view, _ = build_dataloader(
+        cfgs.DATA, cfgs.get("MODALITY", "voxel"), 1, training=False,
+        point_cap=cfgs.get("TPU", {}).get("POINT_CAP_PER_SCAN", N_POINTS),
+        num_workers=1, seed=SEED)
+    return {k: v for k, v in cfgs.items() if k != "OPTIM"}, view
+
+
+def one_scan_view(scan, data_cfgs):
+    """The voxel view of `data_cfgs` over one in-memory scan (a numpy
+    batch of 1), so that its votes are the view's own get_tta_sample."""
+    from openpcseg_torch.config import CfgDict
+    from openpcseg_torch.data.voxel_view import SemkittiVoxelDataset
+
+    v = scan["valid"][0]
+    pc = {"xyzret": np.concatenate([scan["xyz"][0][v],
+                                    scan["feats"][0][v, 3:4]], 1),
+          "labels": scan["labels"][0][v], "path": "raycast/000000.bin"}
+
+    class Source(list):
+        def resample(self):
+            pass
+
+    class View(SemkittiVoxelDataset):
+        def _make_source(self, *args):
+            return Source([pc])
+
+    return View(CfgDict(data_cfgs), training=False,
+                point_cap=scan["xyz"].shape[1], seed=SEED)
+
+
+def _votes_batch(votes, dev="cuda"):
+    from openpcseg_torch.data import collate
+    from openpcseg_torch.engine.task import batch_to_device
+
+    return batch_to_device({k: v for k, v in collate(votes).items()
+                            if k != "name"}, dev)
+
+
+def tta_scan_time(task, votes, label, report):
+    """Host wall (median of 3, collate and copy included, ended by reading
+    the histogram) and device kernel time (profiler) of one scan's
+    test-time augmentation; its histogram, and the launches and plain
+    versions on the card of the first of the 3 runs alone."""
+    from openpcseg_torch.engine.trainer import tta_scan_hist
+    from openpcseg_torch.ops import cuda_lib
+
+    walls = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        cuda_lib.reset_counts()
+        t0 = time.perf_counter()
+        hist = tta_scan_hist(task, votes).cpu()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            launches = dict(cuda_lib.LAUNCHES)
+            plain = dict(cuda_lib.PLAIN_ON_CUDA)
+    dev = profile_window(label, lambda: tta_scan_hist(task, votes), report)
+    wall = statistics.median(walls)
+    log(f"[{label}] one {len(votes)}-vote scan: {wall:.2f} ms of host wall "
+        f"(median of 3: {', '.join(f'{w:.2f}' for w in walls)}), "
+        f"{dev:.3f} ms of device kernel time")
+    report[label] = dict(wall_ms=wall, walls_ms=walls, device_ms=dev)
+    return hist, launches, plain
+
+
+def tta_phase(report, tmp, tree, cudnn_tf32):
+    """Test-time augmentation of MinkUNet mk34_cr10 at full width over the
+    ray-cast tree's 2 val scans x TTA_VOTES votes (the view's own votes),
+    then one scan each of Cylinder3D cy480_cr10 and CENet 64 x 2048, then
+    the infer CLI with --tta. Returns the launches of each main path, read
+    just after it ran: MinkUNet's scans through ``tta_scan_hist`` alone
+    ("minkunet"), one scan of Cylinder3D and of CENet, and the CLI's run
+    ("cli")."""
+    from openpcseg_torch.cli import infer
+    from openpcseg_torch.engine.task import SegTask
+    from openpcseg_torch.engine.trainer import tta_scan_hist
+    from openpcseg_torch.ops import cuda_lib
+    from openpcseg_torch.utils.metrics import confusion_matrix
+
+    t_phase = time.perf_counter()
+    cfgs, view = yaml_view(ENTRY_CFG, tree)
+    kw = dict(device="cuda", compute_dtype=torch.bfloat16)
+    task = SegTask(cfgs, NUM_CLASS, seed=SEED, batch_per_device=TTA_VOTES,
+                   **kw)
+    one = SegTask(cfgs, NUM_CLASS, model=task.model, **kw)
+    faults, scans = [], []
+    launches = dict.fromkeys(cuda_lib.LAUNCHES, 0)
+    for i in range(len(view)):
+        t0 = time.perf_counter()
+        votes = view.get_tta_sample(i, voting=TTA_VOTES)
+        build_ms = (time.perf_counter() - t0) * 1e3
+        # the main path alone (what evaluate_tta runs for a scan): its
+        # launches are read before anything else runs on the card
+        cuda_lib.reset_counts()
+        hist = tta_scan_hist(task, votes).cpu()
+        got = dict(cuda_lib.LAUNCHES)
+        missing = [k for k in FWD_COUNTERS if got[k] == 0]
+        if missing or any(cuda_lib.PLAIN_ON_CUDA.values()):
+            faults.append(f"val scan {i}: kernels never launched {missing} "
+                          f"or a plain version ran on the card "
+                          f"{dict(cuda_lib.PLAIN_ON_CUDA)}")
+        for k, n in got.items():
+            launches[k] += n
+        db = _votes_batch(votes)
+        vb, pyr, _ = task.forward(db)
+        over = int(task.voxel_overflow(vb, pyr))
+        probs = task.predict_probs_step(db)
+        seq = torch.cat([one.predict_probs_step(
+            {k: v[j:j + 1] for k, v in db.items()})
+            for j in range(TTA_VOTES)])
+        valid = db["valid"]
+        diff = float((probs - seq).abs().max())
+        agree = float((probs.argmax(-1) == seq.argmax(-1))[valid]
+                      .float().mean())
+        mean_agree = float((probs.mean(0).argmax(-1) == seq.mean(0).argmax(
+            -1))[valid[0]].float().mean())
+        n_valid = int(votes[0]["valid"].sum())
+        rec = dict(points=n_valid, voxels=int(vb.num_voxels),
+                   level_counts=pyr.level_counts.tolist(),
+                   voxel_overflow=over, max_abs_diff=diff, agree=agree,
+                   mean_agree=mean_agree, hist_sum=int(hist.sum()),
+                   finite=bool(torch.isfinite(probs).all()),
+                   vote_build_ms=build_ms, launches=got)
+        scans.append(rec)
+        log(f"[tta] val scan {i}: {n_valid} points x {TTA_VOTES} votes "
+            f"(built on the host in {build_ms:.1f} ms), voxels per level "
+            f"{rec['level_counts']} (caps {task.caps}), voxel_overflow "
+            f"{over}; batched against per-vote: max|dp| {diff:.3e} (<= "
+            f"{TTA_VOTE_TOL}), argmax agreement {agree:.5f} (>= "
+            f"{TTA_VOTE_AGREE}), of the vote mean {mean_agree:.5f}; hist sum "
+            f"{rec['hist_sum']}; its tta_scan_hist launched {got}")
+        if (over or diff > TTA_VOTE_TOL or agree < TTA_VOTE_AGREE
+                or rec["hist_sum"] != n_valid or not rec["finite"]):
+            faults.append(f"val scan {i}: {rec}")
+    votes = view.get_tta_sample(0, voting=TTA_VOTES)
+    tta_scan_time(task, votes, "tta_scan", report)
+    probs = task.predict_probs_step(_votes_batch(votes))
+    db = _votes_batch(votes)
+    tail = device_ms(lambda: confusion_matrix(
+        probs.mean(0).argmax(-1).to(torch.int32), db["labels"][0],
+        db["valid"][0], NUM_CLASS), KERNEL_REPS)
+    log(f"[tta] the vote mean, argmax and histogram of a scan: {tail:.3f} "
+        f"ms of device time ({tail / report['tta_scan']['device_ms']:.2%} "
+        "of the scan's)")
+    report["tta_tail_device_ms"] = tail
+    del probs, db, one
+    out = {"minkunet": launches}
+
+    # the same votes of an 8192-point scan on the card (bf16) and on the
+    # CPU (float32, plain versions), the card's weights
+    scan = scan_for(CFGS, SEED, cap=8192)
+    votes = one_scan_view(scan, cfgs["DATA"]).get_tta_sample(
+        0, voting=TTA_VOTES)
+    small = dict(batch_per_device=TTA_VOTES, voxel_cap_per_scan=8192)
+    gpu = SegTask(cfgs, NUM_CLASS, model=task.model, **small, **kw)
+    cpu = SegTask(cfgs, NUM_CLASS, device="cpu", **small)
+    cpu.model.load_state_dict(task.model.state_dict())
+    t0 = time.perf_counter()
+    pm = {"gpu": gpu.predict_probs_step(_votes_batch(votes)).mean(0).cpu(),
+          "cpu": cpu.predict_probs_step(_votes_batch(votes, "cpu")).mean(0)}
+    hists = {"gpu": tta_scan_hist(gpu, votes).cpu(),
+             "cpu": tta_scan_hist(cpu, votes)}
+    valid = torch.as_tensor(votes[0]["valid"])
+    err = float((pm["gpu"] - pm["cpu"]).abs().max() / pm["cpu"].abs().max())
+    agree = float((pm["gpu"].argmax(-1) == pm["cpu"].argmax(-1))[valid]
+                  .float().mean())
+    n_valid = int(valid.sum())
+    same = int(hists["gpu"].diagonal().sum())
+    log(f"[tta-ref] 8192-point scan x {TTA_VOTES} votes, GPU bf16 kernels "
+        f"vs CPU f32 plain: vote-mean probabilities max|diff|/max|ref| "
+        f"{err:.4f} (<= 0.1), argmax agreement {agree:.4f} (>= 0.9); hist "
+        f"sums {int(hists['gpu'].sum())} / {int(hists['cpu'].sum())} of "
+        f"{n_valid}, correct points {same} / "
+        f"{int(hists['cpu'].diagonal().sum())} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    report["tta_reference"] = dict(rel_max_err=err, argmax_agree=agree,
+                                   hist_gpu=hists["gpu"].tolist(),
+                                   hist_cpu=hists["cpu"].tolist())
+    if (err > 0.1 or agree < 0.9 or not torch.isfinite(pm["gpu"]).all()
+            or int(hists["gpu"].sum()) != n_valid):
+        faults.append(f"the 8192-point TTA disagrees with the CPU's: err "
+                      f"{err}, agreement {agree}")
+    del gpu, cpu, task
+
+    # one scan of Cylinder3D and of CENet
+    for name, path, need in (("cylinder", CYL_ENTRY_CFG, CYL_FWD),
+                             ("cenet", RANGE_CFG.format("cenet"), ())):
+        c, v = yaml_view(path, tree)
+        if name == "cenet":
+            torch.backends.cudnn.allow_tf32 = cudnn_tf32
+        t = SegTask(c, classes(c), seed=SEED, batch_per_device=TTA_VOTES,
+                    **kw)
+        votes = v.get_tta_sample(0, voting=TTA_VOTES)
+        hist, got, plain = tta_scan_time(t, votes, f"tta_{name}_scan",
+                                         report)
+        torch.backends.cudnn.allow_tf32 = False
+        n_valid = int(votes[0]["p_valid" if t.is_range else "valid"].sum())
+        log(f"[tta-{name}] hist sum {int(hist.sum())} of {n_valid} valid "
+            f"points; one scan's launches {got}")
+        bad = [k for k in need if got[k] == 0] if need else {
+            k: n for k, n in got.items() if n}
+        if int(hist.sum()) != n_valid or bad or any(plain.values()):
+            faults.append(f"{name}: hist sum {int(hist.sum())} of {n_valid}"
+                          f", launches {got} (want {need or 'none'})")
+        out[name] = got
+        del t
+
+    # the infer CLI with --tta over the entry phase's experiment
+    cuda_lib.reset_counts()
+    argv = ["--cfg_file", str(ROOT / ENTRY_CFG), "--log_dir",
+            f"{tmp}/logs", "--extra_tag", "chip_smoke", "--tta", "--set",
+            "DATA.DATA_PATH", tree]
+    t0 = time.perf_counter()
+    rc = infer.main(argv)
+    wall = time.perf_counter() - t0
+    got = dict(cuda_lib.LAUNCHES)
+    logs = _run_logs(f"{tmp}/logs")[0]
+    exp = next(Path(f"{tmp}/logs").glob("**/ckp")).parent
+    tta_miou = [r["val_tta_miou"] for r in map(json.loads, (
+        exp / "metrics.jsonl").open()) if "val_tta_miou" in r]
+    log(f"[tta-cli] infer --tta: rc {rc}, TTA val mIoU {tta_miou}, "
+        f"{wall:.1f} s; launches {got}")
+    if rc != 0 or "TTA val mIoU" not in logs or not tta_miou or any(
+            got[k] == 0 for k in FWD_COUNTERS):
+        faults.append(f"infer --tta: rc {rc}, mIoU {tta_miou}, launches "
+                      f"{got}")
+    out["cli"] = got
+    report["tta"] = dict(scans=scans, cli_tta_miou=tta_miou,
+                         cli_wall_s=wall, launches=out)
+    report["tta_phase_s"] = time.perf_counter() - t_phase
+    log(f"[tta] the phase took {report['tta_phase_s']:.1f} s")
+    if faults:
+        raise SystemExit("tta phase: " + "; ".join(faults))
+    return out
+
+
+def cosines(got, want, convs):
+    """(whole-gradient cosine, worst conv cosine, its name) of two dicts
+    of named gradients."""
+    def cos(a, b):
+        a, b = a.double().reshape(-1), b.double().reshape(-1)
+        return float(a @ b / (a.norm() * b.norm()).clamp(min=1e-300))
+
+    whole = cos(torch.cat([got[n].reshape(-1) for n in want]),
+                torch.cat([w.reshape(-1) for w in want.values()]))
+    per = {n: cos(got[n], want[n]) for n in convs}
+    worst = min(per, key=per.get)
+    return whole, per[worst], worst
+
+
+def _dist_train(n, tmp, tree, tag, epochs):
+    """openpcseg_torch/cli/dist_train.sh `n` over `tree` at batch 1 a
+    rank: its return code and wall seconds."""
+    env = dict(os.environ, PYTHON=sys.executable)
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        ["sh", str(ROOT / "openpcseg_torch/cli/dist_train.sh"), str(n),
+         "--cfg_file", str(ROOT / ENTRY_CFG), "--log_dir",
+         f"{tmp}/{tag}_logs", "--extra_tag", tag, "--batch_size", "1",
+         "--epochs", str(epochs), "--log_interval", "1", "--workers", "2",
+         "--set", "DATA.DATA_PATH", tree],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    log(f"[dp-cli] dist_train.sh {n} --epochs {epochs}: rc "
+        f"{res.returncode}, {wall:.1f} s")
+    if res.returncode:
+        log(res.stdout[-4000:] + res.stderr[-4000:])
+    return res.returncode, wall
+
+
+def dp_phase(report, tmp, tree):
+    """Data parallel on the card: the ranks' steps against their exact
+    equivalent (dp_steps_phase), then dist_train.sh 2 and 1 on the tree
+    (dp_cli_phase). Returns rank 0's launches over its steps."""
+    t_phase = time.perf_counter()
+    launches = dp_steps_phase(report, tmp, tree)
+    dp_cli_phase(report, tmp, tree)
+    report["dp_phase_s"] = time.perf_counter() - t_phase
+    log(f"[dp] the phase took {report['dp_phase_s']:.1f} s")
+    return launches
+
+
+def dp_steps_phase(report, tmp, tree):
+    """DP_WORLD ranks sharing cuda:0 over gloo (parallel/worker.py),
+    MinkUNet mk34_cr10 at full width, one ray-cast scan a rank, DP_STEPS
+    steps, held to the one-process exact step; the summed eval and the
+    sharded TTA histograms. Returns rank 0's launches over its steps."""
+    from openpcseg_torch.engine.task import SegTask
+    from openpcseg_torch.engine.trainer import tta_histogram
+    from openpcseg_torch.models.layers import SparseConv
+    from openpcseg_torch.parallel.worker import (exact_train_step,
+                                                 load_batch, run_ranks)
+
+    d = Path(tmp) / "dp"
+    d.mkdir(parents=True, exist_ok=True)
+    cfgs, view = yaml_view(ENTRY_CFG, tree)
+    paths = []
+    for r in range(DP_WORLD):
+        paths.append(str(d / f"batch{r}.npz"))
+        np.savez(paths[-1], **scan_for(CFGS, SEED + r))
+    kw = dict(device="cuda", compute_dtype=torch.bfloat16, seed=SEED,
+              iters_per_epoch=ITERS_PER_EPOCH)
+    exact = SegTask(TRAIN_CFGS, NUM_CLASS, batch_per_device=DP_WORLD, **kw)
+    torch.save(exact.model.state_dict(), d / "w.pt")
+    spec = dict(cfgs=TRAIN_CFGS, num_class=NUM_CLASS, device="cuda",
+                compute_dtype="bfloat16", world=DP_WORLD,
+                weights=str(d / "w.pt"), batches=paths, steps=DP_STEPS,
+                iters_per_epoch=ITERS_PER_EPOCH, seed=SEED, threads=None,
+                data=dict(data=dict(cfgs["DATA"]), modality="voxel",
+                          point_cap=N_POINTS, voting=TTA_VOTES))
+    t0 = time.perf_counter()
+    ranks = run_ranks(spec, d / "ranks", timeout=600)
+    wall = time.perf_counter() - t0
+    faults = []
+    for r, res in enumerate(ranks):
+        for i, m in enumerate(res["steps"]):
+            log(f"[dp] rank {r} step {i}: loss {m['loss']:.5f} grad_norm "
+                f"{m['grad_norm']:.4f} voxels {m['num_voxels']} "
+                f"voxel_overflow {m['voxel_overflow']} wall "
+                f"{m['wall_ms']:.1f} ms (two ranks on one card) launches "
+                f"{m['launches']}")
+            missing = [k for k in MINK_COUNTERS if m["launches"][k] == 0]
+            if (missing or any(m["plain_on_cuda"].values())
+                    or m["voxel_overflow"] or not np.isfinite(m["loss"])):
+                faults.append(f"rank {r} step {i}: never launched {missing}"
+                              f", overflow {m['voxel_overflow']}, loss "
+                              f"{m['loss']}")
+    s0, s1 = (res["state"] for res in ranks)
+    equal = all(torch.equal(s0[k], s1[k]) for k in s0)
+    losses = [[m["loss"] for m in res["steps"]] for res in ranks]
+    if not equal or losses[0] != losses[1]:
+        faults.append(f"the ranks differ after {DP_STEPS} steps: "
+                      f"parameters equal {equal}, losses {losses}")
+
+    batches = [load_batch(p, "cuda") for p in paths]
+    m = exact_train_step(exact, batches)
+    grads = {n: p.grad.float().cpu() for n, p in
+             exact.model.named_parameters()}
+    convs = [n + ".weight" for n, mod in exact.model.named_modules()
+             if isinstance(mod, SparseConv)]
+    del exact
+    swap = SegTask(TRAIN_CFGS, NUM_CLASS, batch_per_device=DP_WORLD, **kw)
+    swap.model.load_state_dict(torch.load(d / "w.pt", weights_only=True))
+    swap_norm = float(exact_train_step(swap, batches[::-1])["grad_norm"])
+    spread = cosines({n: p.grad.float().cpu() for n, p in
+                      swap.model.named_parameters()}, grads, convs)
+    del swap, batches
+    bound = [max(TRAIN_GROSS[i + 1], 1 - DP_SPREAD * (1 - spread[i]))
+             for i in range(2)]
+    whole, worst, at = cosines(ranks[0]["grads"], grads, convs)
+    first = ranks[0]["steps"][0]
+    rel = abs(first["loss"] - float(m["loss"])) / abs(float(m["loss"]))
+    norm = first["grad_norm"] / float(m["grad_norm"])
+    log(f"[dp-ref] the exact step against itself with its scans swapped: "
+        f"whole-gradient cosine {spread[0]:.6f}, worst conv {spread[1]:.6f}"
+        f" at {spread[2]}, gradient norm ratio "
+        f"{swap_norm / float(m['grad_norm']):.6f}; the {DP_WORLD}-rank step "
+        f"against the exact step: loss {first['loss']:.6f} vs "
+        f"{float(m['loss']):.6f} (rel {rel:.3e} <= {DP_LOSS_REL}), "
+        f"whole-gradient cosine {whole:.6f} (>= {bound[0]:.6f}), worst conv "
+        f"cosine {worst:.6f} at {at} (>= {bound[1]:.6f}), gradient norm "
+        f"before the clip {first['grad_norm']:.4f} vs "
+        f"{float(m['grad_norm']):.4f} (ratio {norm:.6f}, within "
+        f"{DP_NORM_REL} of 1)")
+    if (rel > DP_LOSS_REL or whole < bound[0] or worst < bound[1]
+            or abs(norm - 1) > DP_NORM_REL):
+        faults.append(f"the DP step against the exact step: {rel}, "
+                      f"{whole}, {worst}, {norm} (bounds {DP_LOSS_REL}, "
+                      f"{bound}, {DP_NORM_REL})")
+    del grads
+
+    r0, r1 = ranks
+    local = r0["local_hist"] + r1["local_hist"]
+    n_valid = sum(int(np.load(p)["valid"].sum()) for p in paths)
+    hist_ok = (torch.equal(r0["hist"], local)
+               and torch.equal(r0["hist"], r1["hist"])
+               and int(local.sum()) == n_valid)
+    one = SegTask(TRAIN_CFGS, NUM_CLASS, **kw)
+    one.model.load_state_dict(r0["state"])
+    tta = SegTask(cfgs, NUM_CLASS, device="cuda",
+                  compute_dtype=torch.bfloat16, batch_per_device=TTA_VOTES,
+                  model=one.model)
+    t0 = time.perf_counter()
+    tta_one = tta_histogram(tta, view, TTA_VOTES)
+    tta_s = time.perf_counter() - t0
+    tta_ok = (np.array_equal(r0["tta_hist"].numpy(), tta_one)
+              and torch.equal(r0["tta_hist"], r1["tta_hist"]))
+    log(f"[dp] all-reduced eval histogram = the ranks' own summed: "
+        f"{hist_ok} ({int(local.sum())} of {n_valid} points); sharded "
+        f"{TTA_VOTES}-vote TTA histogram over the {len(view)} val scans = "
+        f"one rank's: {tta_ok} ({int(tta_one.sum())} points; one rank "
+        f"{tta_s:.1f} s); the ranks took {wall:.1f} s")
+    if not hist_ok or not tta_ok:
+        faults.append(f"histograms: eval {hist_ok}, TTA {tta_ok}")
+    del one, tta
+    report["dp"] = dict(
+        steps=[res["steps"] for res in ranks], params_equal=equal,
+        reference=dict(loss_rel=rel, cos_all=whole, cos_worst=worst,
+                       grad_norm_ratio=norm, swap_cos_all=spread[0],
+                       swap_cos_worst=spread[1],
+                       swap_grad_norm_ratio=swap_norm / float(
+                           m["grad_norm"]), bounds=bound),
+        hist_ok=hist_ok, tta_ok=tta_ok, ranks_wall_s=wall)
+    if faults:
+        raise SystemExit("dp phase: " + "; ".join(faults))
+    launches = dict.fromkeys(ranks[0]["steps"][0]["launches"], 0)
+    for m in ranks[0]["steps"]:
+        for k, n in m["launches"].items():
+            launches[k] += n
+    return launches
+
+
+def dp_cli_phase(report, tmp, tree):
+    """openpcseg_torch/cli/dist_train.sh on the tree: DP_WORLD ranks
+    sharing the card (gloo), an epoch and its resume, then one rank
+    (NCCL)."""
+    faults, runs = [], {}
+    for epochs in (1, 2):
+        runs[f"2x{epochs}"] = _dist_train(DP_WORLD, tmp, tree, "dp2", epochs)
+    logs, steps, evals, ckps = _run_logs(f"{tmp}/dp2_logs")
+    n_logs = len(list(Path(next(Path(f"{tmp}/dp2_logs").glob(
+        "**/ckp")).parent).glob("log_train_*.txt")))
+    n_steps = ENTRY_SCANS[0] // DP_WORLD * 2
+    if (any(rc for rc, _ in runs.values()) or ckps != ["0.pt", "1.pt"]
+            or "resumed from epoch 0" not in logs or "over gloo" not in logs
+            or n_logs != 2
+            or [r["step"] for r in steps] != list(range(1, n_steps + 1))
+            or any(r["voxel_overflow"] for r in steps)
+            or not all(np.isfinite(r["loss"]) for r in steps)):
+        faults.append(f"dist_train.sh {DP_WORLD}: runs {runs}, checkpoints "
+                      f"{ckps}, {n_logs} log files, steps "
+                      f"{[r['step'] for r in steps]}")
+    dp2 = dict(steps=steps, evals=evals, checkpoints=ckps,
+               step_ms=[r["step_time"] * 1e3 for r in steps])
+    log(f"[dp-cli] {DP_WORLD} ranks on one card: checkpoints {ckps}, steps "
+        f"{[r['step'] for r in steps]}, step ms {dp2['step_ms']}, val mIoU "
+        f"{[r['val_miou'] for r in evals]}")
+    runs["1x1"] = _dist_train(1, tmp, tree, "dp1", 1)
+    logs, steps, _, ckps = _run_logs(f"{tmp}/dp1_logs")
+    if (runs["1x1"][0] or ckps != ["0.pt"] or "over nccl" not in logs
+            or len(steps) != ENTRY_SCANS[0]):
+        faults.append(f"dist_train.sh 1: rc {runs['1x1'][0]}, checkpoints "
+                      f"{ckps}, NCCL {'over nccl' in logs}, {len(steps)} "
+                      "steps")
+    report["dp"].update(cli=dp2, cli_runs=runs)
+    if faults:
+        raise SystemExit("dp phase: " + "; ".join(faults))
+
+
 def kernel_report(rows, launches, entry_launches, spv_launches,
                   spv_entry_launches, cyl_launches, cyl_entry_launches,
                   range_launches, rpv_launches, rpv_entry_launches,
-                  waymo_launches, waymo_entry_launches, yaml_launches):
+                  waymo_launches, waymo_entry_launches, yaml_launches,
+                  tta_launches, dp_launches):
     """The kernels JSON line: per kernel its launches on the main paths
     (MinkUNet's serving and training phases, SPVCNN's, whose K7 and K8
     also count the launches of its mean-voxelize, and Cylinder3D's), over
@@ -3529,7 +4047,11 @@ def kernel_report(rows, launches, entry_launches, spv_launches,
     voxel shapes; and its launches over the range phases, which run none
     of them; Waymo mk34_cr16's launches (serving and training, the entry
     phase at batch 8) and its heaviest case at the cr 1.6 widths, and the
-    launches over the other Waymo / nuScenes yamls' cells. Then a row for
+    launches over the other Waymo / nuScenes yamls' cells; the launches of
+    MinkUNet's test-time augmentation over its val scans (tta_scan_hist
+    alone), of one Cylinder3D scan's and of the infer CLI's with --tta,
+    apart; rank 0's over the data-parallel steps (every counter of the
+    kernel). Then a row for
     each K7 / K8 route of RPVNet's range fusion (RANGE_FUSION_ROWS): its
     launches on RPVNet's serving and training, its heaviest case, bound
     and library call."""
@@ -3563,6 +4085,12 @@ def kernel_report(rows, launches, entry_launches, spv_launches,
             waymo_entry_launches=waymo_entry_launches[meta["counter"]],
             yaml_launches=sum(yaml_launches.get(k, 0) for k in set(
                 meta["rpv_counters"] + cyl)),
+            **{f"tta{tag}_launches": sum(
+                tta_launches[path][k]
+                for k in set(meta["rpv_counters"] + cyl))
+               for tag, path in (("", "minkunet"), ("_cylinder", "cylinder"),
+                                 ("_cli", "cli"))},
+            dp_launches=sum(dp_launches[k] for k in meta["rpv_counters"]),
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=heavy["ms"], plain_ms=heavy["plain_ms"],
             device_ms=heavy["device_ms"], bound_ms=heavy["bound_ms"],
@@ -3640,6 +4168,11 @@ def main() -> int:
                     help="build, run the forward and backward kernel cases "
                     "(checks and times) and stop: the part of an A/B call "
                     "that compares kernels; prints no result line")
+    ap.add_argument("--dp-only", action="store_true",
+                    help="build, run the data-parallel steps against their "
+                    "one-process exact equivalent (dp_steps_phase) and "
+                    "stop: the part of a call that checks a change to the "
+                    "data-parallel code; prints no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3668,6 +4201,14 @@ def main() -> int:
     for line in ptxas_summary(cuda_lib.BUILD_INFO.get("ptxas", "")):
         log(f"[build] ptxas {line}")
     report["build_s"] = cuda_lib.BUILD_INFO["seconds"]
+    if args.dp_only:
+        scratch = ROOT / "build" / "openpcseg_torch"
+        scratch.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(prefix="dp_", dir=scratch) as tmp:
+            dp_steps_phase(report, tmp, write_entry_tree(tmp))
+        args.report.parent.mkdir(parents=True, exist_ok=True)
+        args.report.write_text(json.dumps(report, indent=1))
+        return 0
 
     task = SegTask(CFGS, NUM_CLASS, device="cuda",
                    compute_dtype=torch.bfloat16, seed=SEED)
@@ -3717,13 +4258,18 @@ def main() -> int:
         phase_done("waymo")
         yaml_launches = yaml_phases(report, tmp, root, cudnn_tf32)
         phase_done("yamls")
+        tta_launches = tta_phase(report, tmp, tree, cudnn_tf32)
+        phase_done("tta")
+        dp_launches = dp_phase(report, tmp, tree)
+        phase_done("dp")
     rows += spv_rows + cyl_rows + rpv_rows + waymo_rows
 
     kernels = kernel_report(rows, launches, entry_launches, spv_launches,
                             spv_entry_launches, cyl_launches,
                             cyl_entry_launches, range_launches, rpv_launches,
                             rpv_entry_launches, waymo_launches,
-                            waymo_entry_launches, yaml_launches)
+                            waymo_entry_launches, yaml_launches,
+                            tta_launches, dp_launches)
     report["total_s"] = time.perf_counter() - t_start
     log(f"[time] chip_smoke.py took {report['total_s']:.1f} s in all, the "
         f"kernels' build included")

@@ -9,7 +9,11 @@ package's infer.py: evaluate a checkpoint on the val split, and with
         --set DATA.DATA_PATH <kitti>/sequences
 
 Without ``--ckp`` it takes the experiment's latest checkpoint. ``--tta``
-raises: test-time augmentation is not ported yet.
+evaluates with 10-vote test-time augmentation instead
+(``Trainer.evaluate_tta``); ``--save_pred`` still dumps the plain
+predictions, as JAX's infer.py does. Data parallel over N processes:
+``sh openpcseg_torch/cli/dist_infer.sh N --cfg_file ... [--tta]``; each
+rank evaluates and dumps its own scans.
 """
 from __future__ import annotations
 
@@ -44,8 +48,7 @@ def parse_config(argv=None):
                              "predictions/, nuScenes lidarseg/val/"
                              "<token>_lidarseg.bin")
     parser.add_argument("--tta", action="store_true",
-                        help="10-vote test-time augmentation (not ported "
-                             "yet: raises)")
+                        help="evaluate with 10-vote test-time augmentation")
     parser.add_argument("--log_interval", type=int, default=50)
     parser.add_argument("--set", dest="set_cfgs", nargs=argparse.REMAINDER,
                         default=None)
@@ -67,8 +70,10 @@ def dump_predictions(trainer, out_dir: Path, raw_ids: bool = False) -> int:
     the inverse LEARNING_MAP), nuScenes-lidarseg's
     ``lidarseg/val/<sample_data_token>_lidarseg.bin`` (uint8 raw category
     ids). A voxel model's predictions are per valid point, a range model's
-    per pixel of its H x W image. Padded eval tails are skipped.
-    Returns the number of files written."""
+    per pixel of its H x W image. Padded eval tails are skipped; under
+    data parallelism each rank writes its own scans, and ``<count>`` is the
+    scan's place in the val split. Returns the number of files this
+    process wrote."""
     inv_lut = None
     nusc_tokens = None
     if raw_ids:
@@ -89,8 +94,13 @@ def dump_predictions(trainer, out_dir: Path, raw_ids: bool = False) -> int:
 
     trainer.init_or_resume()
     out_dir.mkdir(parents=True, exist_ok=True)
+    def place(bi, i):
+        """Scan i of this rank's batch bi: its place in the val split."""
+        return (bi * trainer.global_batch
+                + trainer.rank * trainer.batch_per_device + i)
+
     count = 0
-    for batch in trainer.val_loader:
+    for bi, batch in enumerate(trainer.val_loader):
         preds = trainer.task.predict_step(
             trainer._device_batch(batch)).cpu().numpy()
         valid = batch.get("valid")
@@ -113,14 +123,14 @@ def dump_predictions(trainer, out_dir: Path, raw_ids: bool = False) -> int:
                 raw.tofile(pdir / f"{tok}_lidarseg.bin")
             elif inv_lut is not None:
                 seq = parts[-3] if named else "00"
-                frame = parts[-1][:-4] if named else f"{count:06d}"
+                frame = parts[-1][:-4] if named else f"{place(bi, i):06d}"
                 pdir = out_dir / "sequences" / seq / "predictions"
                 pdir.mkdir(parents=True, exist_ok=True)
                 raw = inv_lut[p.astype(np.int64)].astype(np.uint32)
                 raw.tofile(pdir / f"{frame}.label")
             else:
                 fname = (f"{parts[-3]}_{parts[-1][:-4]}.npy" if named
-                         else f"{count:06d}.npy")
+                         else f"{place(bi, i):06d}.npy")
                 np.save(out_dir / fname, p.astype(np.int32))
             count += 1
     return count
@@ -128,15 +138,16 @@ def dump_predictions(trainer, out_dir: Path, raw_ids: bool = False) -> int:
 
 def main(argv=None) -> int:
     from openpcseg_torch.engine.trainer import Trainer
+    from openpcseg_torch.parallel import init_distributed, shutdown
 
     args, cfgs = parse_config(argv)
-    if args.tta:
-        raise NotImplementedError(
-            "--tta: test-time augmentation is not ported yet (ROADMAP.md "
-            "Queue 1 item 15)")
+    args.device = str(init_distributed(args.device)[2])
     trainer = Trainer(args, cfgs)
     try:
-        trainer.evaluate(prefix="val")
+        if args.tta:
+            trainer.evaluate_tta()
+        else:
+            trainer.evaluate(prefix="val")
         if args.save_pred:
             out_dir = Path(cfgs.DATA.get("OUTPUT_DIR",
                                          trainer.exp_dir / "preds"))
@@ -144,6 +155,7 @@ def main(argv=None) -> int:
             trainer.logger.info(f"saved {n} prediction files to {out_dir}")
     finally:
         trainer.close()
+        shutdown()
     return 0
 
 

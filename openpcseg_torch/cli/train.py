@@ -7,7 +7,14 @@
 Trains on one card (``--device``, default ``cuda``); ``--device cpu`` runs
 the kernels' plain versions on the CPU. A rerun with the same experiment
 (``--log_dir``, ``--extra_tag``) resumes from its latest checkpoint.
-``--num_devices`` above 1 raises: data parallel training is not ported yet.
+Data parallel over N processes, one a card (``--num_devices`` is the world
+size and must equal torchrun's WORLD_SIZE; ``--batch_size`` stays per
+card):
+
+    sh openpcseg_torch/cli/dist_train.sh N --cfg_file ... [--set ...]
+
+Each rank's device is ``cuda:{LOCAL_RANK % device_count}``
+(``parallel.ddp.init_distributed``), or the CPU with ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -33,7 +40,8 @@ def parse_config(argv=None):
     parser.add_argument("--workers", type=int, default=4)
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--num_devices", type=int, default=0,
-                        help="0 or 1: one card (more is not ported yet)")
+                        help="the data-parallel world size (torchrun's "
+                             "WORLD_SIZE; 0: whatever it is)")
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--eval", action="store_true")
     parser.add_argument("--eval_interval", type=int, default=1)
@@ -56,8 +64,10 @@ def parse_config(argv=None):
 
 def main(argv=None) -> int:
     from openpcseg_torch.engine.trainer import Trainer
+    from openpcseg_torch.parallel import init_distributed, shutdown
 
     args, cfgs = parse_config(argv)
+    args.device = str(init_distributed(args.device)[2])
     trainer = Trainer(args, cfgs)
     try:
         if args.eval:
@@ -66,6 +76,7 @@ def main(argv=None) -> int:
             trainer.train()
     finally:
         trainer.close()
+        shutdown()
     return 0
 
 

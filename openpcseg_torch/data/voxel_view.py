@@ -217,11 +217,16 @@ class BatchLoader:
 
         # each worker gets its own seeded Generator: np.random.Generator is
         # documented non-thread-safe, and the dataset's augmentation draws
-        # would otherwise race on the shared one
+        # would otherwise race on the shared one. Every process draws the
+        # same epoch_seed, so a process past the first adds its index:
+        # each sample of the global batch draws its own augmentation, as
+        # one process loading the whole batch does (process 0 keeps the
+        # one-process stream)
         epoch_seed = int(self.rng.integers(0, 2**31 - 1))
+        proc = (pi,) if pi else ()
 
         def worker(worker_id: int):
-            wrng = np.random.default_rng((epoch_seed, worker_id))
+            wrng = np.random.default_rng((epoch_seed, worker_id) + proc)
             for bi in range(worker_id, nb, self.num_workers):
                 if stop.is_set():
                     return

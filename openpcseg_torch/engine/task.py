@@ -7,8 +7,8 @@ modality of the dense range-image CNNs (CENet, FIDNet, RangeNet,
 SalsaNext).
 
 Counterpart of ``openpcseg_tpu/engine/task.py`` (``default_caps``,
-``preprocess``, ``train_step``, ``eval_step``, ``predict_step``), all on
-`device`:
+``preprocess``, ``train_step``, ``eval_step``, ``predict_step``,
+``predict_probs_step``), all on `device`:
 
 - one train step = voxelize (or the cylindrical partition) + geometry
   pass + the model's forward with batch-statistics BN + the configured
@@ -23,6 +23,13 @@ A range step runs the model on the batch's range image [B, H, W, 6]
 MODEL block (``losses/range_losses.py``); its eval re-projects the pixel
 argmax to the batch's points (``p_*``), KNN-refined unless
 MODEL.KNN_POST is off, or counts pixels where the batch has no points.
+
+Data parallel (``group``, JAX's ``axis_name``): each rank steps on its own
+slice of the global batch; the model's MaskedBatchNorms sum their
+statistics over the ranks, the gradients are averaged before the clip,
+the loss is averaged and num_voxels / voxel_overflow are summed, rank 0's
+buffers are taken after each step, and the eval histograms are summed
+(``parallel/ddp.py``). Without a group no collective runs.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ from ..losses.ce import cross_entropy
 from ..models import build_segmentor
 from ..ops.coords import Keys
 from ..optim import build_optimizer
+from ..parallel import ddp
 from ..utils.metrics import confusion_matrix
 
 
@@ -73,14 +81,18 @@ class SegTask:
     into ``task.model`` afterwards. Without an OPTIM block the task only
     evaluates. The task runs on the card unless `device` says otherwise;
     without a card, a CUDA device raises here (the plain versions run only
-    where the caller asks for the CPU)."""
+    where the caller asks for the CPU). `model` shares an existing model
+    (its weights, not a copy) instead of drawing one, as test-time
+    augmentation's task of its own does. `group` is a process group to
+    train and evaluate data-parallel over; `num_devices` its size."""
 
     def __init__(self, cfgs: Dict[str, Any], num_class: int, *,
                  compute_dtype: torch.dtype = torch.float32,
                  device="cuda", voxel_cap_per_scan: Optional[int] = None,
                  seed: int = 0, batch_per_device: int = 1,
                  num_devices: int = 1, iters_per_epoch: int = 1000,
-                 total_epochs: Optional[int] = None):
+                 total_epochs: Optional[int] = None,
+                 model: Optional[torch.nn.Module] = None, group=None):
         self.cfgs = cfgs
         self.num_class = num_class
         self.device = torch.device(device)
@@ -103,10 +115,15 @@ class SegTask:
                 grid_size=tuple(data["CYLINDER_GRID_SIZE"]))
         elif not self.is_range:
             self.voxel_size = float(data["VOXEL_SIZE"])
-        self.model = build_segmentor(model_cfg, num_class,
-                                     compute_dtype=compute_dtype)
-        self.model.reset_parameters(torch.Generator().manual_seed(seed))
-        self.model.to(self.device).eval()
+        if model is None:
+            model = build_segmentor(model_cfg, num_class,
+                                    compute_dtype=compute_dtype)
+            model.reset_parameters(torch.Generator().manual_seed(seed))
+            model.to(self.device).eval()
+        self.model = model
+        self.group = group
+        if group is not None:
+            ddp.sync_batchnorm(model, group)
         if self.is_range:
             if model_cfg.get("POST_CRF", None):
                 raise NotImplementedError(
@@ -243,15 +260,24 @@ class SegTask:
                 ignore_index=self.losses.ignore_index,
                 label_smoothing=self.losses.label_smoothing)
         lr, grad_norm = self._update(loss)
-        return {"loss": loss.detach(), "lr": lr,
-                "num_voxels": vb.num_voxels,
-                "voxel_overflow": self.voxel_overflow(vb, pyr),
-                "grad_norm": grad_norm}
+        return self._reduced({"loss": loss.detach(), "lr": lr,
+                              "num_voxels": vb.num_voxels,
+                              "voxel_overflow": self.voxel_overflow(vb, pyr),
+                              "grad_norm": grad_norm})
+
+    def _reduced(self, metrics):
+        """A train step's metrics over the ranks (JAX task.py:383-385)."""
+        if self.group is None:
+            return metrics
+        return ddp.reduce_train_metrics(metrics, self.group)
 
     def _update(self, loss: torch.Tensor):
-        """Backward, clip, and the optimizer step at the scheduled lr ->
-        (lr, the gradient norm before clipping)."""
+        """Backward, the gradients' mean over the ranks, clip, the optimizer
+        step at the scheduled lr and rank 0's buffers -> (lr, the gradient
+        norm before clipping)."""
         loss.backward()
+        if self.group is not None:      # JAX task.py:381-382, :424
+            ddp.average_gradients(self.model.parameters(), self.group)
         params = [p for p in self.model.parameters() if p.grad is not None]
         clip = self.optim_cfg.get("GRAD_NORM_CLIP", None)
         grad_norm = torch.nn.utils.clip_grad_norm_(
@@ -260,6 +286,8 @@ class SegTask:
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.step()
+        if self.group is not None:
+            ddp.broadcast_buffers(self.model, self.group)
         self.step += 1
         return lr, grad_norm.detach()
 
@@ -275,8 +303,9 @@ class SegTask:
                               **self.range_loss_kwargs)
         lr, grad_norm = self._update(loss)
         zero = torch.zeros((), dtype=torch.int32, device=self.device)
-        return {"loss": loss.detach(), "lr": lr, "num_voxels": zero,
-                "voxel_overflow": zero, "grad_norm": grad_norm}
+        return self._reduced({"loss": loss.detach(), "lr": lr,
+                              "num_voxels": zero, "voxel_overflow": zero,
+                              "grad_norm": grad_norm})
 
     @torch.no_grad()
     def range_logits(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -310,8 +339,19 @@ class SegTask:
             hist = confusion_matrix(pred_img.reshape(-1), labels,
                                     torch.ones_like(labels, dtype=torch.bool),
                                     self.num_class)
-        return {"hist": hist, "voxel_overflow": torch.zeros(
-            (), dtype=torch.int64, device=self.device)}
+        return self._summed(hist, torch.zeros((), dtype=torch.int64,
+                                              device=self.device))
+
+    def _summed(self, hist, overflow, **extra):
+        """An eval step's histogram and voxel overflow, summed over the
+        ranks (JAX task.py:564, :592) in one reduce."""
+        if self.group is not None:
+            n = hist.numel()
+            tot = ddp.all_reduce_sum(torch.cat(
+                [hist.reshape(-1), overflow.reshape(1).to(hist.dtype)]),
+                self.group)
+            hist, overflow = tot[:n].view_as(hist), tot[n]
+        return {"hist": hist, "voxel_overflow": overflow, **extra}
 
     @torch.no_grad()
     def forward(self, batch: Dict[str, torch.Tensor]):
@@ -336,8 +376,8 @@ class SegTask:
         hist = confusion_matrix(self._point_pred(vb, logits),
                                 vb.point_labels, vb.point_valid,
                                 self.num_class)
-        return {"hist": hist, "voxel_overflow": self.voxel_overflow(vb, pyr),
-                "level_counts": pyr.level_counts}
+        return self._summed(hist, self.voxel_overflow(vb, pyr),
+                            level_counts=pyr.level_counts)
 
     @torch.no_grad()
     def predict_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -347,3 +387,27 @@ class SegTask:
             return self.range_logits(batch).argmax(1).to(torch.int32)
         vb, _, logits = self.forward(batch)
         return self._point_pred(vb, logits).reshape(batch["xyz"].shape[0], -1)
+
+    @torch.no_grad()
+    def predict_probs_step(self, batch: Dict[str, torch.Tensor]
+                           ) -> torch.Tensor:
+        """Per-point float32 softmax probabilities [B, Np, num_class] for
+        test-time augmentation's vote (JAX ``predict_probs_step``,
+        task.py:459-490): a voxel model's voxel probabilities gathered to
+        the points through the inverse map (0 where a point has no voxel);
+        a range model's pixel probabilities gathered at each vote's own
+        ``p_py * W + p_px`` (0 where ``p_valid`` is False; no KNN)."""
+        if self.is_range:
+            probs = torch.softmax(self.range_logits(batch).float(), dim=1)
+            v, c, h, w = probs.shape
+            lin = (batch["p_py"] * w + batch["p_px"]).long()   # [V, N]
+            ppt = probs.reshape(v, c, h * w).gather(
+                2, lin[:, None, :].expand(v, c, lin.shape[1]))
+            return torch.where(batch["p_valid"][..., None],
+                               ppt.transpose(1, 2), 0.0)
+        vb, _, logits = self.forward(batch)
+        probs = torch.softmax(logits.float(), dim=-1)
+        inv = vb.inverse_map
+        point = torch.where((inv >= 0)[:, None],
+                            probs[inv.clamp(min=0).long()], 0.0)
+        return point.reshape(batch["xyz"].shape[0], -1, self.num_class)

@@ -17,9 +17,19 @@ Host syncs: a step's outputs stay on the device and are read once per
 per step; an eval reads its histogram once, after the last batch.
 
 The trainer runs on one card (``args.device``, default ``cuda``; it raises
-without one unless the caller asks for the CPU). Data parallel training
-and test-time augmentation are not ported yet (ROADMAP.md Queue 1 items 10
-and 15) and raise.
+without one unless the caller asks for the CPU), or data-parallel on one
+process per rank when torch.distributed is initialised (``cli/
+dist_train.sh``; ``parallel/ddp.py``): each rank loads its
+``batch_per_device`` slice of the global batch ``batch_per_device x
+world`` (the LR scales with the global batch), the steps run their
+collectives, and rank 0 alone writes the checkpoints, ``metrics.jsonl``,
+the TensorBoard events and the log file; a barrier follows each
+checkpoint, and every rank resumes from the same file. Eval tails are
+padded to the global batch (``pad_last``) and add nothing.
+
+``evaluate_tta`` is JAX's 10-vote test-time augmentation
+(``tta_histogram``): each scan's votes in one batched forward of a task of
+its own, whose caps hold the votes and which shares the model.
 """
 from __future__ import annotations
 
@@ -29,13 +39,15 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import CfgDict, log_config_to_file
-from ..data import build_dataloader, num_classes_for, rank_and_world
+from ..data import build_dataloader, collate, num_classes_for, rank_and_world
 from ..data.semantickitti_meta import CLASS_NAMES
-from ..utils.checkpoint import merge_matching
+from ..parallel.ddp import all_reduce_sum, shard_train_step
+from ..utils.checkpoint import barrier, merge_matching, write_atomic
 from ..utils.logger import AverageMeter, MetricsWriter, create_logger
-from ..utils.metrics import crop_hist, miou_from_hist
+from ..utils.metrics import confusion_matrix, crop_hist, miou_from_hist
 from ..utils.reporting import confusion_table, iou_table
 from ..utils.tb_writer import TBWriter
 from .task import SegTask, batch_to_device
@@ -52,10 +64,14 @@ class Trainer:
             raise RuntimeError(
                 f"Trainer: device {self.device} asked for, but torch sees no "
                 "CUDA device (--device cpu runs on the CPU)")
-        if (getattr(args, "num_devices", 0) or 1) > 1:
-            raise NotImplementedError(
-                "--num_devices > 1: data parallel training is not ported yet "
-                "(ROADMAP.md Queue 1 item 10)")
+        self.rank, self.world = rank_and_world()
+        n_dev = getattr(args, "num_devices", 0) or self.world
+        if n_dev != self.world:
+            raise ValueError(
+                f"--num_devices {n_dev}, but this run has {self.world} "
+                "process(es) (WORLD_SIZE): launch one process per device, "
+                f"e.g. openpcseg_torch/cli/dist_train.sh {n_dev}")
+        self.is_main = self.rank == 0
         self.log_interval = getattr(args, "log_interval", 50)
         self.profile_dir = getattr(args, "profile_dir", None)
         self._profiler = None
@@ -66,14 +82,21 @@ class Trainer:
         self.ckp_dir = self.exp_dir / "ckp"
         self.ckp_dir.mkdir(parents=True, exist_ok=True)
         self.logger = create_logger(
-            self.exp_dir / f"log_train_{int(time.time())}.txt")
-        self.metrics = MetricsWriter(self.exp_dir / "metrics.jsonl")
-        self.tb = (TBWriter(self.exp_dir / "tensorboard")
-                   if rank_and_world()[0] == 0 else None)
+            self.exp_dir / f"log_train_{int(time.time())}.txt", self.rank)
+        self.metrics = (MetricsWriter(self.exp_dir / "metrics.jsonl")
+                        if self.is_main else None)
+        self.tb = (TBWriter(self.exp_dir / "tensorboard") if self.is_main
+                   else None)
         log_config_to_file(cfgs, logger=self.logger)
+        if dist.is_available() and dist.is_initialized():
+            self.logger.info(f"data parallel: {self.world} rank(s) over "
+                             f"{dist.get_backend()}, rank 0 on {self.device}")
 
         self.batch_per_device = int(
             getattr(args, "batch_size", 0) or cfgs.OPTIM.BATCH_SIZE_PER_GPU)
+        # the loaders take the global batch, each rank its slice of it
+        # (JAX trainer.py:77-91)
+        self.global_batch = self.batch_per_device * self.world
         self.max_ckp = getattr(args, "max_ckp_save_num", 5)
 
         modality = cfgs.get("MODALITY", "voxel")
@@ -82,10 +105,10 @@ class Trainer:
         seed = getattr(args, "seed", 0)
         workers = getattr(args, "workers", 4)
         self.train_set, self.train_loader = build_dataloader(
-            cfgs.DATA, modality, self.batch_per_device, training=True,
+            cfgs.DATA, modality, self.global_batch, training=True,
             point_cap=point_cap, num_workers=workers, seed=seed)
         self.val_set, self.val_loader = build_dataloader(
-            cfgs.DATA, modality, self.batch_per_device, training=False,
+            cfgs.DATA, modality, self.global_batch, training=False,
             point_cap=point_cap, num_workers=workers, seed=seed)
 
         self.total_epochs = int(
@@ -97,9 +120,13 @@ class Trainer:
         self.task = SegTask(
             cfgs, self.num_class, device=self.device,
             compute_dtype=compute_dtype, seed=seed,
-            batch_per_device=self.batch_per_device,
+            batch_per_device=self.batch_per_device, num_devices=self.world,
             iters_per_epoch=max(1, len(self.train_loader)),
-            total_epochs=self.total_epochs)
+            total_epochs=self.total_epochs,
+            group=dist.group.WORLD if self.world > 1 else None)
+        self._train_step = None
+        self._tta_tasks: dict = {}
+        self.tta_hist: Optional[np.ndarray] = None
         self.ready = False
         self.start_epoch = 0
         self.cur_epoch = 0
@@ -113,7 +140,9 @@ class Trainer:
 
     def init_or_resume(self) -> None:
         """Pretrained weights (--pretrained_ckp), then --ckp or the latest
-        checkpoint of the experiment; once per run."""
+        checkpoint of the experiment (every rank the same file); once per
+        run. Then the train step, which starts every rank from rank 0's
+        state."""
         if self.ready:
             return
         self.ready = True
@@ -125,6 +154,7 @@ class Trainer:
             latest = self.latest_checkpoint()
             if latest is not None:
                 self.restore(latest)
+        self._train_step = shard_train_step(self.task)
 
     def load_pretrained(self, path) -> None:
         """Shape-tolerant partial load for fine-tuning: every saved tensor
@@ -154,18 +184,19 @@ class Trainer:
         return ckps[-1][1] if ckps else None
 
     def save_checkpoint(self, epoch: int) -> Path:
-        task = self.task
-        payload = {"model": task.model.state_dict(),
-                   "optimizer": task.optimizer.state_dict(),
-                   "step": task.step, "epoch": epoch,
-                   "generator": task.generator.get_state()}
+        """Rank 0 writes ckp/<epoch>.pt and prunes the oldest; every rank
+        then waits at a barrier."""
         path = self.ckp_dir / f"{epoch}.pt"
-        tmp = path.with_suffix(".pt.tmp")
-        torch.save(payload, tmp)
-        tmp.replace(path)
-        for _, old in self.checkpoints()[:-self.max_ckp]:
-            old.unlink()
-        self.logger.info(f"checkpoint saved @ epoch {epoch}")
+        if self.is_main:
+            task = self.task
+            write_atomic({"model": task.model.state_dict(),
+                          "optimizer": task.optimizer.state_dict(),
+                          "step": task.step, "epoch": epoch,
+                          "generator": task.generator.get_state()}, path)
+            for _, old in self.checkpoints()[:-self.max_ckp]:
+                old.unlink()
+            self.logger.info(f"checkpoint saved @ epoch {epoch}")
+        barrier()
         return path
 
     def restore(self, path) -> None:
@@ -230,12 +261,12 @@ class Trainer:
         mem = ({"max_memory_allocated":
                 torch.cuda.max_memory_allocated(self.device)}
                if self.device.type == "cuda" else {})
-        self.metrics.write(step, loss=int_loss, lr=lr,
-                           num_voxels=vals[-1, 2], grad_norm=vals[-1, 3],
-                           voxel_overflow=overflow, data_time=t_data.avg,
-                           step_time=step_time,
-                           scans_per_s=self.batch_per_device / step_time,
-                           **mem)
+        self._write_metrics(step, loss=int_loss, lr=lr,
+                            num_voxels=vals[-1, 2], grad_norm=vals[-1, 3],
+                            voxel_overflow=overflow, data_time=t_data.avg,
+                            step_time=step_time,
+                            scans_per_s=self.global_batch / step_time,
+                            **mem)
         if self.tb is not None:
             self.tb.add_scalars({"train/loss": int_loss, "train/lr": lr,
                                  "train/step_time_ms": step_time * 1e3},
@@ -254,7 +285,7 @@ class Trainer:
             db = self._device_batch(batch)
             t_data.update(time.time() - last)
             self._profile(it)
-            pending.append(self.task.train_step(db))
+            pending.append(self._train_step(db))
             if (it + 1) % self.log_interval == 0:
                 self._flush(pending, epoch, it, t_data, interval_t0,
                             loss_meter)
@@ -285,7 +316,7 @@ class Trainer:
             crop_hist(hist, unique_label), eval_names))
         if overflow > 0:
             self.logger.warning(f"{prefix}: voxel overflow {overflow}")
-        self.metrics.write(self.task.step, **{
+        self._write_metrics(self.task.step, **{
             f"{prefix}_miou": miou, f"{prefix}_voxel_overflow": overflow})
         if self.tb is not None:
             self.tb.add_scalars({f"{prefix}/{n}": float(v)
@@ -294,19 +325,52 @@ class Trainer:
             self.tb.add_scalar(f"{prefix}_miou", miou, self.cur_epoch + 1)
         return miou
 
+    def tta_task(self, voting: int) -> SegTask:
+        """Test-time augmentation's task for `voting` votes, made once per
+        `voting`: its caps hold a batch of `voting` scans (they scale with
+        the batch), and it shares the trainer's model (JAX
+        trainer.py:355-369)."""
+        if voting not in self._tta_tasks:
+            cfgs = {k: v for k, v in self.cfgs.items() if k != "OPTIM"}
+            self._tta_tasks[voting] = SegTask(
+                cfgs, self.num_class, device=self.device,
+                compute_dtype=self.task.compute_dtype,
+                batch_per_device=voting, model=self.task.model)
+        return self._tta_tasks[voting]
+
     def evaluate_tta(self, voting: int = 10) -> float:
-        raise NotImplementedError(
-            "test-time augmentation is not ported yet (ROADMAP.md Queue 1 "
-            "item 15)")
+        """`voting`-vote test-time augmentation over the val split ->
+        mIoU (%) (JAX ``Trainer.evaluate_tta``, trainer.py:336-438): every
+        rank takes its own scans, the histograms are summed over the ranks;
+        the histogram stays in ``tta_hist``."""
+        self.init_or_resume()
+        hist = tta_histogram(self.tta_task(voting), self.val_set, voting,
+                             self.rank, self.world)
+        self.tta_hist = hist
+        unique_label = np.arange(self.num_class - 1)
+        miou, iou = miou_from_hist(hist, unique_label)
+        names = getattr(self.val_set, "class_names", CLASS_NAMES)
+        eval_names = list(names[1:self.num_class])
+        self.logger.info(f"TTA val mIoU: {miou:.2f} ({voting} votes)\n"
+                         + iou_table(miou, iou, eval_names))
+        self._write_metrics(self.task.step, val_tta_miou=miou)
+        if self.tb is not None:
+            self.tb.add_scalar("val_tta_miou", miou, self.cur_epoch + 1)
+        return miou
+
+    def _write_metrics(self, step: int, **scalars) -> None:
+        if self.metrics is not None:
+            self.metrics.write(step, **scalars)
 
     def train(self) -> None:
         eval_interval = getattr(self.args, "eval_interval", 1)
         ckp_interval = getattr(self.args, "ckp_save_interval", 1)
         if len(self.train_loader) == 0:
             raise RuntimeError(
-                f"empty train loader: batch {self.batch_per_device} exceeds "
+                f"empty train loader: global batch {self.global_batch} "
+                f"({self.batch_per_device} a device x {self.world}) exceeds "
                 f"the {len(self.train_set)}-scan train set (drop_last); "
-                "lower --batch_size or add data")
+                "lower --batch_size / --num_devices or add data")
         self.init_or_resume()
         for epoch in range(self.start_epoch, self.total_epochs):
             self.cur_epoch = epoch
@@ -318,6 +382,47 @@ class Trainer:
                 self.evaluate(prefix="val")
 
     def close(self) -> None:
-        self.metrics.close()
+        if self.metrics is not None:
+            self.metrics.close()
         if self.tb is not None:
             self.tb.close()
+
+
+def tta_scan_hist(task: SegTask, votes, counted: bool = True
+                  ) -> torch.Tensor:
+    """One scan's test-time augmentation on the device: its votes (a list
+    of view samples, ``dataset.get_tta_sample``) in one batched forward
+    (``task.predict_probs_step``), the mean of their probabilities, its
+    argmax and the histogram (int64 [C, C]) against the scan's labels;
+    all zero where not `counted` (a padded round)."""
+    lab_key, val_key = (("p_label", "p_valid") if task.is_range
+                        else ("labels", "valid"))
+    db = batch_to_device({k: v for k, v in collate(votes).items()
+                          if k != "name"}, task.device)
+    probs = task.predict_probs_step(db)              # [voting, N, C]
+    pred = probs.mean(0).argmax(-1).to(torch.int32)
+    valid = db[val_key][0] if counted else torch.zeros_like(db[val_key][0])
+    return confusion_matrix(pred, db[lab_key][0], valid, task.num_class)
+
+
+def tta_histogram(task: SegTask, dataset, voting: int, rank: int = 0,
+                  world: int = 1) -> np.ndarray:
+    """The confusion matrix of `voting`-vote test-time augmentation over
+    `dataset` (int64 [C, C]; JAX ``Trainer.evaluate_tta``, trainer.py:
+    336-438), one scan at a time through ``tta_scan_hist``. Rank r of
+    `world` forwards scans start + r; the tail repeats the last scan,
+    uncounted, and the ranks' histograms are summed once at the end (JAX
+    psums each round's; the sum is the same). A vote's scale is drawn from
+    the view's generator, so every rank draws the votes of every scan of a
+    round, in JAX's order, and forwards its own: the votes, and so the
+    histogram, are the same at every world size. The price: a rank builds
+    `world` scans' votes on the host for each scan it forwards."""
+    c, n = task.num_class, len(dataset)
+    hist = torch.zeros(c, c, dtype=torch.int64, device=task.device)
+    for start in range(0, n, world):
+        votes = [dataset.get_tta_sample(min(start + r, n - 1), voting=voting)
+                 for r in range(world)][rank]
+        hist += tta_scan_hist(task, votes, counted=start + rank < n)
+    if world > 1:
+        hist = all_reduce_sum(hist, dist.group.WORLD)
+    return hist.cpu().numpy()

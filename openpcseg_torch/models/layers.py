@@ -47,6 +47,7 @@ from ..ops.kmap import kernel_offsets
 from ..ops.sparse_conv import sparse_conv_1x1
 from ..ops.subm_conv import SubmConvFn
 from ..ops.updown import DownConvFn, StridedConvFn, UpConvFn
+from ..parallel.ddp import all_reduce_sum
 
 # kind -> (kernel size, autograd Function)
 _CONVS = {"subm": (3, SubmConvFn), "down": (2, DownConvFn),
@@ -122,8 +123,11 @@ class MaskedBatchNorm(nn.Module):
     zero. Training (``openpcseg_tpu/models/layers.py:199-220``): float32
     statistics over the valid rows only (count at least 1), the biased
     variance to normalise, the unbiased one into the running estimate with
-    EMA decay 0.9 (torch momentum 0.1). Eval: the running statistics. The
-    cross-device sync of the statistics comes with data parallelism.
+    EMA decay 0.9 (torch momentum 0.1). Eval: the running statistics.
+    With ``group`` set (``parallel.ddp.sync_batchnorm``, JAX's
+    ``axis_name``) the count and sums are summed over the ranks before the
+    mean and variance, through a reduce whose backward sums the cotangents
+    over the ranks too.
 
     The variance is JAX's E[x^2] - mean^2, or with ``centered`` the mean
     squared deviation from the mean (a second pass). Where an input
@@ -132,7 +136,9 @@ class MaskedBatchNorm(nn.Module):
     keep different ones: Cylinder3D's raw point features on the ray-cast
     scans (a cell-centre height of mean 2.096, sd 0.0093) lose about three
     of seven, which moved the card's bf16 train step 3e-3 away from the
-    CPU's at its first layer. Its BN on those features is centred."""
+    CPU's at its first layer. Its BN on those features is centred; synced,
+    it reduces twice: the count and sum, then the squared deviations from
+    the global mean."""
 
     def __init__(self, c: int, eps: float = 1e-5, centered: bool = False):
         super().__init__()
@@ -142,19 +148,31 @@ class MaskedBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
+        self.group = None    # a process group: statistics over its ranks
 
     def forward(self, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         if self.training:
             m = valid.float()[:, None]
-            cnt = m.sum().clamp(min=1.0)
-            mean = (xf * m).sum(0) / cnt
+            cnt, s1 = m.sum(), (xf * m).sum(0)
+            s2 = None if self.centered else (xf * xf * m).sum(0)
+            if self.group is not None:     # JAX layers.py:205-208
+                c = s1.shape[0]
+                tot = all_reduce_sum(torch.cat(
+                    [cnt[None], s1] + ([] if s2 is None else [s2])),
+                    self.group)
+                cnt, s1 = tot[0], tot[1:1 + c]
+                s2 = None if s2 is None else tot[1 + c:]
+            cnt = cnt.clamp(min=1.0)
+            mean = s1 / cnt
             if self.centered:
                 dev = (xf - mean) * m
-                var = (dev * dev).sum(0) / cnt
+                ss = (dev * dev).sum(0)
+                if self.group is not None:
+                    ss = all_reduce_sum(ss, self.group)
+                var = ss / cnt
             else:
-                var = ((xf * xf * m).sum(0) / cnt - mean * mean).clamp(
-                    min=0.0)
+                var = (s2 / cnt - mean * mean).clamp(min=0.0)
             with torch.no_grad():
                 unbiased = var * cnt / (cnt - 1.0).clamp(min=1.0)
                 self.running_mean.mul_(_BN_DECAY).add_(

@@ -1,6 +1,7 @@
-"""Shape-tolerant partial restore of a model (fine-tune workflows).
+"""Checkpoint files: rank 0's atomic write, the barrier after it, and the
+shape-tolerant partial restore of a model (fine-tune workflows).
 
-Counterpart of ``openpcseg_tpu/utils/checkpoint.py merge_matching`` over
+``merge_matching`` is the counterpart of ``openpcseg_tpu/utils/checkpoint.py merge_matching`` over
 flat ``state_dict`` names: every saved tensor whose name and shape match
 the freshly built model is kept, the rest is skipped and reported (e.g. a
 classifier head of another width). The JAX version also refuses a
@@ -10,9 +11,27 @@ layout, so there is no such check here.
 """
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Dict, List, Tuple
 
 import torch
+import torch.distributed as dist
+
+
+def write_atomic(payload, path: Path) -> None:
+    """torch.save `payload` to a temporary file beside `path`, then rename
+    it onto `path`: a reader sees the old file or the whole new one. Call
+    it on rank 0 only, then ``barrier``."""
+    tmp = path.with_suffix(path.suffix + ".tmp")
+    torch.save(payload, tmp)
+    tmp.replace(path)
+
+
+def barrier() -> None:
+    """Wait for every rank when torch.distributed is initialised (after
+    rank 0's checkpoint write, so no rank reads a half-written file)."""
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
 
 
 def merge_matching(target: Dict[str, torch.Tensor],

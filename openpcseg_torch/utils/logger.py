@@ -15,7 +15,8 @@ from pathlib import Path
 
 def create_logger(log_file: str | Path | None = None,
                   rank: int = 0) -> logging.Logger:
-    """The package logger: console, and `log_file` when given. A later call
+    """The package logger: console, and `log_file` when given on rank 0
+    (the other ranks log warnings to the console only). A later call
     moves the file output to its own `log_file` (closing the earlier
     file), so a second run in one process, as a train then an infer call,
     logs to its own file; the JAX package's logger keeps the first."""
@@ -31,7 +32,7 @@ def create_logger(log_file: str | Path | None = None,
         console = logging.StreamHandler()
         console.setFormatter(fmt)
         logger.addHandler(console)
-    if log_file is not None:
+    if log_file is not None and rank == 0:
         fh = logging.FileHandler(log_file)
         fh.setFormatter(fmt)
         logger.addHandler(fh)

@@ -22,9 +22,10 @@ setup(
     packages=find_packages(exclude=["tests", "tools"]),
     # the PyTorch / CUDA port ships its kernel sources: they are compiled
     # with nvcc at first use on a CUDA tensor (openpcseg_torch/ops/
-    # cuda_lib.py); and the golden gates its golden_run reads
+    # cuda_lib.py); the golden gates its golden_run reads; and its
+    # torchrun launchers
     package_data={"openpcseg_torch": ["csrc/*.cu", "csrc/*.cuh",
-                                      "cli/*.json"]},
+                                      "cli/*.json", "cli/*.sh"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "orbax-checkpoint", "numpy",
                       "pyyaml"],

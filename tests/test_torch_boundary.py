@@ -46,6 +46,8 @@ SLICE_MODULES = [
     "openpcseg_torch.data.nuscenes", "openpcseg_torch.data.nuscenes_meta",
     "openpcseg_torch.data.raycast_waymo",
     "openpcseg_torch.data.raycast_nuscenes",
+    "openpcseg_torch.parallel", "openpcseg_torch.parallel.ddp",
+    "openpcseg_torch.parallel.worker",
 ]
 
 
@@ -62,6 +64,24 @@ def test_port_imports_no_jax_flax_optax_or_yaml():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert "clean" in res.stdout
+
+
+def test_parallel_package_imports_torch_distributed_and_the_port_only():
+    """openpcseg_torch/parallel/ (data parallelism and its worker) imports
+    torch (torch.distributed among it), numpy, the standard library and
+    the port; nothing of the JAX package or jax."""
+    import ast
+
+    seen = set()
+    for path in sorted((ROOT / "openpcseg_torch/parallel").glob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                seen |= {a.name for a in node.names}
+            elif isinstance(node, ast.ImportFrom) and not node.level:
+                seen.add(node.module)
+    assert "torch.distributed" in seen
+    tops = {m.split(".")[0] for m in seen} - set(sys.stdlib_module_names)
+    assert tops == {"numpy", "torch"}, seen
 
 
 def test_chip_smoke_model_is_the_mk34_cr10_config():

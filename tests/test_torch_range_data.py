@@ -7,7 +7,7 @@ with its native C++ z-buffer where that library builds (it differs from
 the numpy one on a few pixels a scan); the port has only the numpy one, so
 these tests turn JAX's native projection off. Also: every shipped range
 yaml through ``build_dataloader`` and ``SegTask``, the optimizer and
-scheduler builders, and what still raises (TTA, POST_CRF, the other
+scheduler builders, and what still raises (POST_CRF, the other
 optimizers) with the item that ports it."""
 import numpy as np
 import pytest
@@ -158,12 +158,6 @@ def test_optimizers_and_what_still_raises():
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             build_optimizer(dict(cfg.OPTIM, LR=1e-3, OPTIMIZER=name,
                                  SCHEDULER=sched), params, 4, 2)
-    from openpcseg_torch.cli import infer
-    from openpcseg_torch.engine.trainer import Trainer
-    with pytest.raises(NotImplementedError, match="item 15"):
-        infer.main(["--cfg_file", YAMLS[0], "--tta", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 15"):
-        Trainer.evaluate_tta(None)
     with pytest.raises(NotImplementedError, match="item 15"):
         SegTask(dict(cfg, MODEL=dict(cfg.MODEL, POST_CRF=True)), 20,
                 device="cpu")
