@@ -12,17 +12,28 @@ Counterpart of ``openpcseg_tpu/engine/task.py`` (``default_caps``,
 
 - one train step = voxelize (or the cylindrical partition) + geometry
   pass + the model's forward with batch-statistics BN + the configured
-  losses (CE with label smoothing + Lovász-softmax; plus Cylinder3D's
-  point-refinement CE) + backward through the kernels' backward passes +
-  gradient clipping + the optimizer update at the scheduled lr;
+  losses (any of ``losses.KNOWN``, by default CE with label smoothing +
+  Lovász-softmax; plus Cylinder3D's point-refinement CE) + backward
+  through the kernels' backward passes + gradient clipping + the
+  optimizer update at the scheduled lr (each param group's: sgd_fc's
+  classifier at 10x);
 - one eval step = the same forward with running-statistics BN + argmax
   re-projected to every point through the inverse map + confusion matrix.
+
+A stateful loss (EQLv2) keeps its buffers in ``loss_state``, device
+tensors the train step replaces. MODEL.EXTEND_HEAD_FOR_GROUPS widens a
+voxel model's head to the extended GroupSoftmax layout; the class scores
+of every argmax and softmax are then ``group_softmax_activation``'s
+(``class_scores``), and the histograms stay over num_class.
 
 A range step runs the model on the batch's range image [B, H, W, 6]
 (float32, the model's aux heads in training) with the range losses of the
 MODEL block (``losses/range_losses.py``); its eval re-projects the pixel
 argmax to the batch's points (``p_*``), KNN-refined unless
-MODEL.KNN_POST is off, or counts pixels where the batch has no points.
+MODEL.KNN_POST is off, or counts pixels where the batch has no points;
+MODEL.POST_CRF first refines the pixel softmax with the locally
+connected CRF (``ops/range_postproc.py``) and takes the argmax of its
+log.
 
 Data parallel (``group``, JAX's ``axis_name``): each rank steps on its own
 slice of the global batch; the model's MaskedBatchNorms sum their
@@ -40,11 +51,14 @@ import torch
 
 from ..core.batch import cylinder_points_batch, voxelize_points_batch
 from ..core.geometry import build_pyramid
+from ..data import dataset_meta
 from ..losses import Losses
 from ..losses.ce import cross_entropy
+from ..losses.longtail import (group_softmax_activation,
+                               group_softmax_channel_num)
 from ..models import build_segmentor
 from ..ops.coords import Keys
-from ..optim import build_optimizer
+from ..optim import build_optimizer, set_step
 from ..parallel import ddp
 from ..utils.metrics import confusion_matrix
 
@@ -115,8 +129,20 @@ class SegTask:
                 grid_size=tuple(data["CYLINDER_GRID_SIZE"]))
         elif not self.is_range:
             self.voxel_size = float(data["VOXEL_SIZE"])
+        # the extended GroupSoftmax head (JAX task.py:95-108); metrics and
+        # eval stay over num_class
+        self.extended_group_head = bool(
+            model_cfg.get("EXTEND_HEAD_FOR_GROUPS", False))
+        self.group_version = model_cfg.get("GROUP_VERSION", "bgfg")
+        head_out = num_class
+        if self.extended_group_head:
+            if self.is_range:
+                raise ValueError("EXTEND_HEAD_FOR_GROUPS supports the "
+                                 "sparse segmentors only")
+            head_out = group_softmax_channel_num(num_class,
+                                                 self.group_version)
         if model is None:
-            model = build_segmentor(model_cfg, num_class,
+            model = build_segmentor(model_cfg, head_out,
                                     compute_dtype=compute_dtype)
             model.reset_parameters(torch.Generator().manual_seed(seed))
             model.to(self.device).eval()
@@ -125,10 +151,13 @@ class SegTask:
         if group is not None:
             ddp.sync_batchnorm(model, group)
         if self.is_range:
-            if model_cfg.get("POST_CRF", None):
-                raise NotImplementedError(
-                    "MODEL.POST_CRF (ops/range_postproc.py crf_refine) is "
-                    "not ported yet (ROADMAP.md Queue 1 item 15)")
+            crf = model_cfg.get("POST_CRF", None)
+            kw = crf if isinstance(crf, dict) else {}
+            self.crf = dict(
+                iters=int(kw.get("ITER", 3)), lcn_h=int(kw.get("LCN_H", 3)),
+                lcn_w=int(kw.get("LCN_W", 5)),
+                xyz_coef=float(kw.get("XYZ_COEF", 0.1)),
+                xyz_sigma=float(kw.get("XYZ_SIGMA", 0.7))) if crf else None
             # the loss knobs of the MODEL block (JAX task.py:128-137)
             self.range_loss_kwargs = dict(
                 loss_kind=model_cfg.get("LOSS", "wce"),
@@ -157,12 +186,23 @@ class SegTask:
                                      spec["num_levels"],
                                      tpu_cfg.get("VOXEL_CAP_RATIOS", None))
 
+        # class names and counts from the dataset (JAX task.py:144-165)
         loss_cfg = model_cfg.get("LOSS_CONFIG", {}) or {}
+        names, num_pts = dataset_meta(data.get("DATASET", "semantickitti"))
         self.losses = Losses(
             loss_cfg.get("LOSS_TYPES", ["CELoss", "LovLoss"]),
             loss_cfg.get("LOSS_WEIGHTS", [1.0, 1.0]),
+            cls_num_pts=num_pts, class_names=names, num_class=num_class,
             ignore_index=model_cfg.get("IGNORE_LABEL", 0),
-            label_smoothing=model_cfg.get("LABEL_SMOOTHING", 0.0))
+            label_smoothing=model_cfg.get("LABEL_SMOOTHING", 0.0),
+            extended_group_head=self.extended_group_head,
+            group_version=self.group_version, group=group)
+        if self.losses.stateful and self.extended_group_head:
+            # JAX sizes EQLv2's buffers by num_class and its logits by the
+            # head, and fails at its first step on the mismatch
+            raise ValueError("EQLv2 takes the num_class-wide head: it "
+                             "cannot run with EXTEND_HEAD_FOR_GROUPS")
+        self.loss_state = self.losses.init_state(num_class, self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.step = 0
         self.optimizer = self.lr_fn = None
@@ -175,8 +215,8 @@ class SegTask:
             total_epochs = total_epochs or self.optim_cfg.get(
                 "NUM_EPOCHS", 36)
             self.optimizer, self.lr_fn = build_optimizer(
-                self.optim_cfg, self.model.parameters(), iters_per_epoch,
-                total_epochs)
+                self.optim_cfg, self.model.named_parameters(),
+                iters_per_epoch, total_epochs)
 
     def preprocess(self, batch: Dict[str, torch.Tensor]):
         """Voxelize (or partition the cylinder) + geometry pass ->
@@ -251,7 +291,11 @@ class SegTask:
         self.optimizer.zero_grad(set_to_none=True)
         logits, aux = self._run_model(vb, pyr, batch,
                                       generator=self.generator)
-        loss = self.losses(logits, vb.voxel_labels, vb.voxel_valid)
+        loss = self.losses(logits, vb.voxel_labels, vb.voxel_valid,
+                           state=self.loss_state if self.losses.stateful
+                           else None, generator=self.generator)
+        if self.losses.stateful:     # JAX task.py:341, :360-394
+            loss, self.loss_state = loss
         if "point_refine_logits" in aux:
             # Cylinder3D's auxiliary point-refinement CE (JAX
             # _loss_from_outputs)
@@ -282,9 +326,7 @@ class SegTask:
         clip = self.optim_cfg.get("GRAD_NORM_CLIP", None)
         grad_norm = torch.nn.utils.clip_grad_norm_(
             params, float(clip) if clip else float("inf"))
-        lr = self.lr_fn(self.step)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
+        lr = set_step(self.optimizer, self.lr_fn, self.step)
         self.optimizer.step()
         if self.group is not None:
             ddp.broadcast_buffers(self.model, self.group)
@@ -313,34 +355,56 @@ class SegTask:
         self.model.eval()
         return self.model(batch["scan"])[0]
 
+    def crf_logits(self, batch: Dict[str, torch.Tensor],
+                   logits: torch.Tensor) -> torch.Tensor:
+        """MODEL.POST_CRF (JAX task.py:505-525): the log of the CRF-refined
+        softmax of range logits [B, C, H, W], over the scan's xyz scaled
+        by (50, 50, 3) and its channel-5 mask."""
+        from ..ops.range_postproc import crf_refine
+        scan = batch["scan"]
+        xyz = torch.cat([scan[..., :2] * 50.0, scan[..., 2:3] * 3.0], -1)
+        sm = torch.softmax(logits.float(), dim=1).permute(0, 2, 3, 1)
+        sm = crf_refine(xyz, sm, scan[..., 5] > 0.5, **self.crf)
+        return torch.log(sm.clamp(min=1e-12)).permute(0, 3, 1, 2)
+
     @torch.no_grad()
     def _range_eval_step(self, batch: Dict[str, torch.Tensor]):
         """JAX ``_range_eval_step``: with the batch's points (``p_label``,
         ``p_px``, ``p_py``, ``p_range``, ``p_valid``), the pixel argmax
         re-projected to each point, KNN-refined unless MODEL.KNN_POST is
-        off, and a per-point histogram; else a per-pixel one."""
-        pred_img = self.range_logits(batch).argmax(1).to(torch.int32)
-        if "p_label" in batch:
-            if self.knn is not None:
-                from ..ops.range_knn import knn_postprocess
-                point_pred = knn_postprocess(
-                    batch["scan"][..., 4] * 80.0, pred_img,
-                    batch["p_range"], batch["p_px"], batch["p_py"],
-                    batch["p_valid"], num_class=self.num_class, **self.knn)
-            else:
-                w = pred_img.shape[-1]
-                point_pred = pred_img.reshape(pred_img.shape[0], -1).gather(
-                    1, (batch["p_py"] * w + batch["p_px"]).long())
-            hist = confusion_matrix(
-                point_pred.reshape(-1), batch["p_label"].reshape(-1),
-                batch["p_valid"].reshape(-1), self.num_class)
-        else:
+        off, and a per-point histogram; else a per-pixel one. With
+        MODEL.POST_CRF the argmax is the CRF-refined one's."""
+        logits = self.range_logits(batch)
+        if self.crf is not None:
+            logits = self.crf_logits(batch, logits)
+        return self._summed(self.range_hist(batch, logits),
+                            torch.zeros((), dtype=torch.int64,
+                                        device=self.device))
+
+    def range_hist(self, batch: Dict[str, torch.Tensor],
+                   logits: torch.Tensor) -> torch.Tensor:
+        """This rank's confusion matrix of range logits [B, C, H, W]: per
+        point (KNN-refined unless MODEL.KNN_POST is off) where the batch
+        has its points, else per pixel."""
+        pred_img = logits.argmax(1).to(torch.int32)
+        if "p_label" not in batch:
             labels = batch["label"].reshape(-1)
-            hist = confusion_matrix(pred_img.reshape(-1), labels,
-                                    torch.ones_like(labels, dtype=torch.bool),
-                                    self.num_class)
-        return self._summed(hist, torch.zeros((), dtype=torch.int64,
-                                              device=self.device))
+            return confusion_matrix(
+                pred_img.reshape(-1), labels,
+                torch.ones_like(labels, dtype=torch.bool), self.num_class)
+        if self.knn is not None:
+            from ..ops.range_knn import knn_postprocess
+            point_pred = knn_postprocess(
+                batch["scan"][..., 4] * 80.0, pred_img, batch["p_range"],
+                batch["p_px"], batch["p_py"], batch["p_valid"],
+                num_class=self.num_class, **self.knn)
+        else:
+            w = pred_img.shape[-1]
+            point_pred = pred_img.reshape(pred_img.shape[0], -1).gather(
+                1, (batch["p_py"] * w + batch["p_px"]).long())
+        return confusion_matrix(
+            point_pred.reshape(-1), batch["p_label"].reshape(-1),
+            batch["p_valid"].reshape(-1), self.num_class)
 
     def _summed(self, hist, overflow, **extra):
         """An eval step's histogram and voxel overflow, summed over the
@@ -356,13 +420,24 @@ class SegTask:
     @torch.no_grad()
     def forward(self, batch: Dict[str, torch.Tensor]):
         """Eval forward (running-statistics BN) -> (VoxelBatch,
-        VoxelPyramid, voxel logits [V, num_class] f32)."""
+        VoxelPyramid, voxel logits [V, head width] f32: num_class, or the
+        extended head's)."""
         self.model.eval()
         vb, pyr = self.preprocess(batch)
         return vb, pyr, self._run_model(vb, pyr, batch)[0]
 
+    def class_scores(self, logits: torch.Tensor) -> torch.Tensor:
+        """Head logits -> per-class scores for argmax and softmax: the
+        logits, or an extended head's group-softmax activation (JAX
+        ``_class_scores``, task.py:303-315)."""
+        if not self.extended_group_head:
+            return logits
+        return group_softmax_activation(
+            logits, num_class=self.num_class,
+            class_names=self.losses.class_names, version=self.group_version)
+
     def _point_pred(self, vb, logits) -> torch.Tensor:
-        voxel_pred = logits.argmax(dim=-1).to(torch.int32)
+        voxel_pred = self.class_scores(logits).argmax(dim=-1).to(torch.int32)
         inv = vb.inverse_map
         return torch.where(inv >= 0, voxel_pred[inv.clamp(min=0).long()],
                            torch.zeros_like(inv))
@@ -406,7 +481,7 @@ class SegTask:
             return torch.where(batch["p_valid"][..., None],
                                ppt.transpose(1, 2), 0.0)
         vb, _, logits = self.forward(batch)
-        probs = torch.softmax(logits.float(), dim=-1)
+        probs = torch.softmax(self.class_scores(logits).float(), dim=-1)
         inv = vb.inverse_map
         point = torch.where((inv >= 0)[:, None],
                             probs[inv.clamp(min=0).long()], 0.0)

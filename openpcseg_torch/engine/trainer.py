@@ -8,8 +8,8 @@ Counterpart of ``openpcseg_tpu/engine/trainer.py``:
   and an eval with the per-class IoU table and confusion matrix;
 - checkpoints are one ``torch.save`` file per epoch, ``ckp/<epoch>.pt``,
   holding the model and optimizer ``state_dict``s, ``SegTask.step`` (so
-  the LR schedule goes on where it stopped), the epoch and the dropout
-  generator's state; the newest ``max_ckp_save_num`` files are kept, and a
+  the LR schedule goes on where it stopped), the epoch, the dropout
+  generator's state and the loss state (EQLv2's buffers; {} otherwise); the newest ``max_ckp_save_num`` files are kept, and a
   run without ``--ckp`` resumes from the latest epoch.
 
 Host syncs: a step's outputs stay on the device and are read once per
@@ -192,7 +192,8 @@ class Trainer:
             write_atomic({"model": task.model.state_dict(),
                           "optimizer": task.optimizer.state_dict(),
                           "step": task.step, "epoch": epoch,
-                          "generator": task.generator.get_state()}, path)
+                          "generator": task.generator.get_state(),
+                          "loss_state": task.loss_state}, path)
             for _, old in self.checkpoints()[:-self.max_ckp]:
                 old.unlink()
             self.logger.info(f"checkpoint saved @ epoch {epoch}")
@@ -201,7 +202,7 @@ class Trainer:
 
     def restore(self, path) -> None:
         """Model, optimizer (its momentum buffers on the model's device),
-        step, generator and epoch from a checkpoint file."""
+        step, generator, loss state and epoch from a checkpoint file."""
         payload = torch.load(path, map_location=self.device,
                              weights_only=True)
         task = self.task
@@ -209,6 +210,7 @@ class Trainer:
         task.optimizer.load_state_dict(payload["optimizer"])
         task.step = int(payload["step"])
         task.generator.set_state(payload["generator"].cpu())
+        task.loss_state = payload.get("loss_state", task.loss_state)
         self.start_epoch = int(payload["epoch"]) + 1
         self.logger.info(f"resumed from epoch {int(payload['epoch'])} "
                          f"({path}, step {task.step})")

@@ -1,11 +1,11 @@
 """Sparse network building blocks (torch.nn).
 
 Counterpart of ``openpcseg_tpu/models/layers.py``: SparseConv,
-MaskedBatchNorm, BasicConvBlock, ResidualBlock, ``repeated_blocks`` and
-dropout. Layers take their kernel maps and validity masks from a
-precomputed VoxelPyramid; they never build geometry themselves. BN uses
-batch statistics while the module is training (``module.train()``) and
-running statistics otherwise.
+MaskedBatchNorm, BasicConvBlock, ResidualBlock, Bottleneck,
+``repeated_blocks`` and dropout. Layers take their kernel maps and
+validity masks from a precomputed VoxelPyramid; they never build
+geometry themselves. BN uses batch statistics while the module is
+training (``module.train()``) and running statistics otherwise.
 
 Conv dispatch (the port's rewrite of ``layers.py:116-148``): each conv
 names its kind, and each kind has one autograd Function whose forward and
@@ -202,7 +202,9 @@ class BasicConvBlock(nn.Module):
 
 class ResidualBlock(nn.Module):
     """conv-BN-ReLU-conv-BN + shortcut (1x1 conv + BN when the width
-    changes), within one level."""
+    changes), within one level; it returns `cout` channels."""
+
+    expansion = 1
 
     def __init__(self, cin: int, cout: int,
                  compute_dtype: torch.dtype = torch.float32):
@@ -225,7 +227,41 @@ class ResidualBlock(nn.Module):
         return torch.relu(x + sc)
 
 
-BLOCKS = {"ResBlock": ResidualBlock}
+class Bottleneck(nn.Module):
+    """1x1 -> BN/ReLU -> 3^3 submanifold -> BN/ReLU -> 1x1 to 4 x `planes`
+    -> BN, plus the shortcut (identity where the input is already 4 x
+    `planes` wide, else a 1x1 conv and BN), then ReLU, within one level
+    (JAX ``layers.py Bottleneck``, :273-303). It returns 4 x `planes`
+    channels: the stages that follow take that width."""
+
+    expansion = 4
+
+    def __init__(self, cin: int, planes: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        out = planes * self.expansion
+        self.conv1 = SparseConv(cin, planes, "1x1", compute_dtype)
+        self.bn1 = MaskedBatchNorm(planes)
+        self.conv2 = SparseConv(planes, planes, "subm", compute_dtype)
+        self.bn2 = MaskedBatchNorm(planes)
+        self.conv3 = SparseConv(planes, out, "1x1", compute_dtype)
+        self.bn3 = MaskedBatchNorm(out)
+        self.shortcut = None
+        if cin != out:
+            self.shortcut = SparseConv(cin, out, "1x1", compute_dtype)
+            self.bn_sc = MaskedBatchNorm(out)
+
+    def forward(self, feats, kmap, valid):
+        x = torch.relu(self.bn1(self.conv1(feats, None, valid), valid))
+        x = torch.relu(self.bn2(self.conv2(x, kmap, valid), valid))
+        x = self.bn3(self.conv3(x, None, valid), valid)
+        sc = feats
+        if self.shortcut is not None:
+            sc = self.bn_sc(self.shortcut(feats, None, valid), valid)
+        return torch.relu(x + sc)
+
+
+BLOCKS = {"ResBlock": ResidualBlock, "Bottleneck": Bottleneck}
 
 
 def dropout(x: torch.Tensor, p: float,
@@ -243,8 +279,11 @@ def dropout(x: torch.Tensor, p: float,
 
 def repeated_blocks(block_cls, cin: int, planes: int, n: int,
                     compute_dtype: torch.dtype) -> nn.ModuleList:
-    """n blocks: the first takes cin -> planes, the rest planes -> planes
-    (JAX scans blocks 2..n over stacked parameters; here a plain loop)."""
+    """n blocks: the first takes cin -> planes x its expansion, the rest
+    carry that width (JAX scans blocks 2..n over stacked parameters; here
+    a plain loop)."""
+    width = planes * block_cls.expansion
     blocks: List[nn.Module] = [block_cls(cin, planes, compute_dtype)]
-    blocks += [block_cls(planes, planes, compute_dtype) for _ in range(n - 1)]
+    blocks += [block_cls(width, planes, compute_dtype)
+               for _ in range(n - 1)]
     return nn.ModuleList(blocks)

@@ -6,6 +6,13 @@ concat + blocks) + a float32 classifier over the devoxelized [z1, z2, z3]
 of levels 4, 2 and 0. Config keys: IN_FEATURE_DIM, NUM_LAYER, PLANES, cr,
 BLOCK, DROPOUT_P (JAX default 0.3; dropout after x4 and y2 while training,
 drawn from the generator the caller passes).
+
+BLOCK is JAX's: ResBlock or Bottleneck (JAX's default; 4x expansion).
+With Bottleneck each stage's blocks return 4 x its planes, and the widths
+follow JAX's, which flax infers from its inputs (JAX minkunet.py:55-79):
+a down conv keeps the width it gets, an up conv reads the expanded width
+of the stage below, the skips concatenate at their expanded widths, and
+the classifier reads (cs[4] + cs[6] + cs[8]) x 4.
 """
 from __future__ import annotations
 
@@ -32,8 +39,10 @@ class MinkUNet(nn.Module):
         num_layer = cfg.get("NUM_LAYER", [2, 3, 4, 6, 2, 2, 2, 2])
         block = cfg.get("BLOCK", "Bottleneck")
         if block not in BLOCKS:
-            raise NotImplementedError(f"BLOCK {block!r} is not ported yet")
+            raise ValueError(f"BLOCK {block!r}: the blocks are "
+                             f"{sorted(BLOCKS)}")
         block_cls = BLOCKS[block]
+        self.expansion = exp = block_cls.expansion
         cr = cfg.get("cr", 1.0)
         cs = [int(cr * x) for x in
               cfg.get("PLANES", [32, 32, 64, 128, 256, 256, 128, 96, 96])]
@@ -53,7 +62,7 @@ class MinkUNet(nn.Module):
             self.downs.append(BasicConvBlock(c, c, "down", cdt))
             self.down_blocks.append(
                 repeated_blocks(block_cls, c, cs[i + 1], num_layer[i], cdt))
-            c = cs[i + 1]
+            c = cs[i + 1] * exp
         self.ups = nn.ModuleList()
         self.up_bns = nn.ModuleList()
         self.up_blocks = nn.ModuleList()
@@ -64,8 +73,9 @@ class MinkUNet(nn.Module):
             self.up_blocks.append(repeated_blocks(
                 block_cls, planes + skips[3 - i], planes, num_layer[4 + i],
                 cdt))
-            c = planes
-        self.classifier = nn.Linear(cs[4] + cs[6] + cs[8], num_class)
+            c = planes * exp
+        self.classifier = nn.Linear((cs[4] + cs[6] + cs[8]) * exp,
+                                    num_class)
 
     @classmethod
     def geometry_spec(cls) -> dict:

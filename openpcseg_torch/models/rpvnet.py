@@ -24,6 +24,13 @@ The range maps go to the points over each resolution's bilinear table
 table (K8, K7 back), tables ``SegTask.preprocess`` builds once a step
 from each voxel's pxpy (``VoxelPyramid.range``).
 
+BLOCK is ResBlock by default, as in JAX (rpvnet.py:151-152). A
+Bottleneck voxel branch (4x expansion) cannot be built: JAX widens the
+devoxelized voxel features and the point MLPs to 4 x the planes but not
+the range branch, so its gate 1 adds a cs[4]-wide range feature to a 4 x
+cs[4]-wide voxel one and fails at that add (a broadcast error at init);
+the port refuses the config when it builds the model.
+
 Dropout: ``RPVResBlock`` and ``RPVUpBlock`` drop at 0.2 while training
 whatever DROPOUT_P says, as JAX hard-codes it; the mean-voxelized y1 and
 y3 at DROPOUT_P. Every draw comes from the generator the caller passes
@@ -118,6 +125,12 @@ class RPVNet(MinkUNet):
         cfg.setdefault("IN_FEATURE_DIM", 5)
         cfg.setdefault("BLOCK", "ResBlock")
         super().__init__(cfg, num_class, compute_dtype)
+        if self.expansion != 1:
+            raise ValueError(
+                f"RPVNet with BLOCK {cfg['BLOCK']!r}: the gates add the "
+                f"range branch's cs[4] channels to {self.expansion} x cs[4] "
+                "voxel channels, which the JAX model cannot add either "
+                "(rpvnet.py gate 1); RPVNet takes ResBlock")
         cr = cfg.get("cr", 1.0)
         cs = [int(cr * x) for x in cfg.get(
             "PLANES", [32, 32, 64, 128, 256, 256, 128, 96, 96])]

@@ -64,9 +64,11 @@ class SPVCNN(MinkUNet):
         cr = model_cfgs.get("cr", 1.0)
         cs = [int(cr * x) for x in model_cfgs.get(
             "PLANES", [32, 32, 64, 128, 256, 256, 128, 96, 96])]
+        e = self.expansion     # JAX spvcnn.py:92-93, :120
         self.point_transforms = nn.ModuleList([
-            PointTransform(cs[0], cs[4]), PointTransform(cs[4], cs[6]),
-            PointTransform(cs[6], cs[8])])
+            PointTransform(cs[0], cs[4] * e),
+            PointTransform(cs[4] * e, cs[6] * e),
+            PointTransform(cs[6] * e, cs[8] * e)])
 
     @classmethod
     def geometry_spec(cls) -> dict:

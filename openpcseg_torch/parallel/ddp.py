@@ -17,6 +17,9 @@ under ``axis_name``, in a ``SegTask`` built with ``group``:
     (task.py:564, :592), shard_eval_step    SegTask.eval_step sums it itself
     MaskedBatchNorm(axis_name)              sync_batchnorm: cnt, s1, s2 summed
     (layers.py:205-208)                     by all_reduce_sum, differentiable
+    psum of EQLv2's d_pos / d_neg           Losses(group=...): eqlv2_loss sums
+    (longtail.py:271-273)                   them by all_reduce_sum, so every
+                                            rank's buffers stay the same
     device 0's batch_stats in the
     replicated state                        broadcast_buffers after each step
     global_batch_arrays                     none: each rank keeps its own

@@ -112,8 +112,8 @@ def rank_main(spec, rank: int) -> None:
 def _batch_run(task, step, steps: int, batch) -> dict:
     """`steps` train steps of this rank on `batch`, each with its launch
     counts and wall ms (ended by reading its metrics), the first step's
-    clipped gradients, the state after them, and
-    the eval of `batch`."""
+    clipped gradients, the state and the loss state (EQLv2's buffers)
+    after them, and the eval of `batch`."""
     out = {"steps": []}
     for i in range(steps):
         cuda_lib.reset_counts()
@@ -129,6 +129,8 @@ def _batch_run(task, step, steps: int, batch) -> dict:
                             if p.grad is not None}
     out["state"] = {k: v.detach().cpu().clone()
                     for k, v in task.model.state_dict().items()}
+    out["loss_state"] = {k: {n: t.cpu() for n, t in v.items()}
+                         for k, v in task.loss_state.items()}
     out["hist"] = task.eval_step(batch)["hist"].cpu()
     if not task.is_range:       # this rank's own histogram
         out["local_hist"] = confusion_matrix(

@@ -18,7 +18,9 @@ parameter and buffer of an ``openpcseg_torch.models.MinkUNet``, ``SPVCNN``,
   [Cin, Cout] is the Linear weight transposed, a conv ``bias`` the
   SparseConv's;
 - blocks 2..n of a stage with n >= 3 live in ``StackedBlocks_j`` with every
-  leaf stacked on axis 0 (layers.py:347-356) and are unstacked here;
+  leaf stacked on axis 0 (layers.py:347-356) and are unstacked here; a
+  Bottleneck stage's are ``Bottleneck_i`` unrolled and
+  ``StackedBlocks_j/Scan_ScanBody_0/Bottleneck_0`` scanned;
 - a range model's (and RPVNet's range branch's) 2-D conv kernel [kh, kw,
   Cin, Cout] (HWIO) becomes the
   weight [Cout, Cin, kh, kw] (OIHW); RangeNet's transposed conv kernel
@@ -111,24 +113,42 @@ class _Loader:
             self.conv(blk.shortcut, path + ("SparseConv_2",), stack)
             self.bn(blk.bn_sc, path + ("MaskedBatchNorm_2",), stack)
 
+    def bottleneck(self, blk, path: Path, stack=None) -> None:
+        """layers.py Bottleneck: SparseConv_0 / MaskedBatchNorm_0 the
+        first 1x1, _1 the 3^3 conv, _2 the expanding 1x1, _3 the
+        shortcut's, where there is one."""
+        for j, (conv, bn) in enumerate(((blk.conv1, blk.bn1),
+                                        (blk.conv2, blk.bn2),
+                                        (blk.conv3, blk.bn3))):
+            self.conv(conv, path + (f"SparseConv_{j}",), stack)
+            self.bn(bn, path + (f"MaskedBatchNorm_{j}",), stack)
+        if blk.shortcut is not None:
+            self.conv(blk.shortcut, path + ("SparseConv_3",), stack)
+            self.bn(blk.bn_sc, path + ("MaskedBatchNorm_3",), stack)
+
     def blocks(self, blocks, scan_blocks: bool) -> None:
         """repeated_blocks: first unrolled; the rest unrolled when there is
-        one of them (or scanning is off), else one StackedBlocks."""
-        self.residual(blocks[0], (self.next("ResidualBlock"),))
+        one of them (or scanning is off), else one StackedBlocks, whose
+        _ScanBody holds the stacked block as `<class>_0`. flax names a
+        ResidualBlock `ResidualBlock_i`, a Bottleneck `Bottleneck_i`."""
+        cls = ("Bottleneck" if type(blocks[0]).__name__ == "Bottleneck"
+               else "ResidualBlock")
+        walk = self.bottleneck if cls == "Bottleneck" else self.residual
+        walk(blocks[0], (self.next(cls),))
         rest = list(blocks)[1:]
         if len(rest) == 1 or (rest and not scan_blocks):
             for b in rest:
-                self.residual(b, (self.next("ResidualBlock"),))
+                walk(b, (self.next(cls),))
         elif rest:
             base = (self.next("StackedBlocks"), "Scan_ScanBody_0",
-                    "ResidualBlock_0")
+                    f"{cls}_0")
             depth = self.take("params", base + ("SparseConv_0", "kernel"),
                               None).shape[0]
             if depth != len(rest):
                 raise ValueError(f"{base[0]} stacks {depth} blocks, the "
                                  f"torch stage has {len(rest)}")
             for j, b in enumerate(rest):
-                self.residual(b, base, stack=j)
+                walk(b, base, stack=j)
 
 
     def dense(self, linear, path: Path) -> None:

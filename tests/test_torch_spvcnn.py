@@ -404,10 +404,10 @@ def test_registry_and_modalities():
     for name in ("CENet", "FIDNet", "RangeNet", "SalsaNext"):
         assert build_segmentor(dict(MODEL, NAME=name),
                                NUM_CLASS).MODALITY == "range"
-    # the range modality's one switch still to port: the CRF post-process
-    with pytest.raises(NotImplementedError, match="item 15"):
-        SegTask(dict(CFGS, MODALITY="range", MODEL=dict(
-            MODEL, NAME="CENet", POST_CRF=True)), NUM_CLASS, device="cpu")
+    # the range modality's CRF post-process (tests/test_torch_crf.py)
+    task = SegTask(dict(CFGS, MODALITY="range", MODEL=dict(
+        MODEL, NAME="CENet", POST_CRF={"ITER": 2})), NUM_CLASS, device="cpu")
+    assert task.crf["iters"] == 2 and task.crf["lcn_w"] == 5
     fan = model.point_transforms[0].linear.weight.shape[1]
     std = float(_port_task().model.point_transforms[0].linear.weight
                 .detach().std())

@@ -38,6 +38,7 @@ import torch
 from test_torch_minkunet import MODEL, NUM_CLASS, TPU, _perturb
 
 from openpcseg_tpu.config import CfgDict
+from openpcseg_tpu import losses as jx_losses
 from openpcseg_tpu.engine import SegTask as JaxSegTask
 from openpcseg_tpu.losses.ce import cross_entropy as jx_ce
 from openpcseg_tpu.losses.lovasz import lovasz_softmax as jx_lovasz
@@ -214,11 +215,20 @@ def test_lovasz_matches_jax_with_ties(rng):
                                rtol=1e-5, atol=1e-7)
 
 
-def test_losses_dispatch():
+def test_losses_dispatch(rng):
+    """Every name of JAX's set dispatches (each one's parity:
+    tests/test_torch_loss_zoo.py); a sum of two equals JAX's sum."""
     assert Losses(["CELoss", "LovLoss"], [1.0, 1.0]).loss_types == [
         "CELoss", "LovLoss"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Losses(["CELoss", "FocalLoss"], [1.0, 1.0])
+    logits, labels, valid = _loss_inputs(rng)
+    want = jx_losses.Losses(["CELoss", "FocalLoss"], [1.0, 0.5])(
+        jnp.asarray(logits), jnp.asarray(labels), jnp.asarray(valid))
+    got = Losses(["CELoss", "FocalLoss"], [1.0, 0.5])(
+        torch.as_tensor(logits), torch.as_tensor(labels),
+        torch.as_tensor(valid))
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+    with pytest.raises(NotImplementedError, match="GeoLoss"):
+        Losses(["CELoss", "GeoLoss"], [1.0, 1.0])
 
 
 # ---------------------------------------------------------- optimization --
@@ -233,9 +243,16 @@ def test_lr_schedule_matches_jax():
     for s in range(0, 30):
         np.testing.assert_allclose(got(s), float(want(s)), rtol=1e-6,
                                    atol=2e-7 * cfg["LR"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_lr_schedule(dict(cfg, SCHEDULER="cos_warmup_with_cosdecay"),
-                          7, 3)
+    # the other schedulers alike (tests/test_torch_optim_zoo.py steps
+    # every one); a name the JAX package does not know raises
+    cos = dict(cfg, SCHEDULER="cos_warmup_with_cosdecay")
+    want, got = jx_lr_schedule(CfgDict(cos), 7, 3), build_lr_schedule(
+        cos, 7, 3)
+    for s in range(0, 30):
+        np.testing.assert_allclose(got(s), float(want(s)), rtol=1e-6,
+                                   atol=2e-7 * cfg["LR"])
+    with pytest.raises(NotImplementedError, match="poly"):
+        build_lr_schedule(dict(cfg, SCHEDULER="poly"), 7, 3)
 
 
 def test_clip_and_sgd_match_optax(rng):
@@ -269,8 +286,14 @@ def test_clip_and_sgd_match_optax(rng):
             np.testing.assert_allclose(tp[k].detach().numpy(),
                                        np.asarray(jp[k]), rtol=1e-5,
                                        atol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_optimizer(dict(cfg, OPTIMIZER="adam"), list(tp.values()), 2, 4)
+    # Adam builds too (its trajectory: tests/test_torch_optim_zoo.py); a
+    # name the JAX package does not know raises
+    opt, _ = build_optimizer(dict(cfg, OPTIMIZER="adam"), list(tp.values()),
+                             2, 4)
+    assert isinstance(opt, torch.optim.Adam)
+    with pytest.raises(NotImplementedError, match="rmsprop"):
+        build_optimizer(dict(cfg, OPTIMIZER="rmsprop"), list(tp.values()),
+                        2, 4)
 
 
 def test_dropout_keep_rate():
