@@ -41,8 +41,8 @@ p2r_bwd).
 The range models run float32 dense convs on cuDNN, no kernel of the port.
 
 Phases (any failure exits non-zero and prints no result line), which run
-in the order 1-3, 7, 4-6, 8, 9, 19, 11, 14, 18, 12, 13, 10, 15, 16, 17,
-20, 21 (PHASES: the phases that need no CPU reference step run between
+in the order 1-3, 7, 4-6, 8, 9, 22, 19, 11, 14, 18, 12, 13, 10, 15, 16,
+17, 20, 21 (PHASES: the phases that need no CPU reference step run between
 those that do, so the reference process keeps ahead of them):
   1. the card's name and power limit; TF32 off for matmuls and cuDNN
      (back to torch's default, TF32 convs, for phases 13, 14 and 21);
@@ -226,7 +226,14 @@ those that do, so the reference process keeps ahead of them):
      and sgd_fc (the raw-id dump);
  21. crf phase: RangeNet++ 64 x 2048 with MODEL.POST_CRF served, the CRF's
      device ms, its refined probabilities and histogram against the CPU's
-     under the range reference rule, one CRF under the sync debug mode.
+     under the range reference rule, one CRF under the sync debug mode;
+ 22. native phase (once the entry tree of phase 10 is written): the
+     SemanticKITTI view's native scan and label readers
+     (openpcseg_torch/native.py) built with g++ from the checkout, every
+     .bin and .label of the tree read through them and through their
+     plain numpy versions (equal arrays), the train CLI loader's first
+     batch over the tree (native.READS must move), and the host ms a
+     scan of each path (the .bin read; the .label read and remapped).
 The run's total time is logged.
 Every kernel case carries CUDA-event ms of the wrapper and of the plain
 version, the kernel's profiler device ms, and its bound (bound_ms: bytes
@@ -236,9 +243,10 @@ reads less than the bound is taken again); K7 and
 K8 also the time of torch.sparse.mm over the same table as a CSR matrix (library_ms), which the port never calls.
 --phases runs the named phases alone, after the build, in their order,
 and prints no result line: cases (3 and 7: the kernel half of an A/B
-call), minkunet (4-6, 8, 9), bottleneck (19), spvcnn (11), range (14), dp
-(18), cylinder (12), rpvnet (13), entry (10), waymo (15), yamls (16, with
-waymo), tta (17, with entry), loss_zoo and loss_clis (20), crf (21).
+call), minkunet (4-6, 8, 9), native (22), bottleneck (19), spvcnn (11),
+range (14), dp (18), cylinder (12), rpvnet (13), entry (10), waymo (15),
+yamls (16, with waymo), tta (17, with entry), loss_zoo and loss_clis
+(20), crf (21).
 Then the kernel JSON line, the card line and the result line.
 The full report (every kernel case, request, step and profiler row) goes
 to --report, by default build/openpcseg_torch/chip_smoke.json.
@@ -420,6 +428,7 @@ CYL_NEED = CYL_FWD + ("subm_bwd", "dw", "strided_bwd", "strided_dw",
 ENTRY_CFG = "tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10.yaml"
 ENTRY_BATCH = 2
 ENTRY_SCANS = (4, 2)
+NATIVE_REPS = 5          # timed reads of each entry-tree file a reader path
 # the depth of the network in the entry phase's step against the CPU
 # float32 step (entry_reference): its stages cut to one block each, to
 # hold the whole run inside its time (the CPU step at the yaml's depth took
@@ -1913,12 +1922,12 @@ def step_against_cpu(cfgs, batch, cpu, weights_seed=None, cpu_tables=False,
 # == the phases, in the order they run: those that need no CPU reference
 # step (range, dp) run between those that do, so the reference process
 # keeps ahead of them; --phases runs a subset, in this order
-PHASES = ("cases", "minkunet", "bottleneck", "spvcnn", "range", "dp",
-          "cylinder", "rpvnet", "entry", "waymo", "yamls", "tta",
+PHASES = ("cases", "minkunet", "native", "bottleneck", "spvcnn", "range",
+          "dp", "cylinder", "rpvnet", "entry", "waymo", "yamls", "tta",
           "loss_zoo", "loss_clis", "crf")
 PHASE_NEEDS = {"yamls": "waymo", "tta": "entry"}   # reads what that wrote
-TREE_PHASES = {"bottleneck", "spvcnn", "range", "dp", "cylinder", "rpvnet",
-               "entry", "tta", "loss_clis"}         # read the entry tree
+TREE_PHASES = {"native", "bottleneck", "spvcnn", "range", "dp", "cylinder",
+               "rpvnet", "entry", "tta", "loss_clis"}  # read the entry tree
 # == the CPU float32 halves of the training references, in a process of
 # their own that starts before the build (python3 chip_smoke.py --cpu-refs
 # DIR JOB...): it takes the jobs of the phases run (REF_JOBS) in their
@@ -2278,6 +2287,75 @@ def write_entry_tree(tmp):
     return tree
 
 
+def native_phase(report, tmp, tree):
+    """The native scan and label readers (openpcseg_torch/native.py) on the
+    card machine's host: built with g++ from the checkout's source; every
+    .bin and .label of the entry `tree` read through them and through
+    their plain versions, which must give equal arrays; the first batch
+    of the train CLI's loader over the tree, over which native.READS must
+    move; and the host ms a scan of each path, reading the .bin and
+    reading and remapping the .label: per file the median of NATIVE_REPS
+    reads of each path in turns (page-cached, warm), then the median over
+    the tree's scans."""
+    from openpcseg_torch import native
+    from openpcseg_torch.data.semantickitti_meta import LEARNING_MAP_LUT
+
+    t0 = time.perf_counter()
+    so = native.build()
+    native.lib()
+    log(f"[native] g++ build of {native.SRC.name}: "
+        f"{time.perf_counter() - t0:.2f} s -> {so.name}")
+    readers = {
+        "scan": (native.load_kitti_scan, native.load_kitti_scan_plain),
+        "labels": (lambda p: native.load_kitti_labels(p, LEARNING_MAP_LUT),
+                   lambda p: native.load_kitti_labels_plain(
+                       p, LEARNING_MAP_LUT)),
+    }
+    bins = sorted(Path(tree).glob("*/velodyne/*.bin"))
+    ms = {(kind, path): [] for kind in readers
+          for path in ("native", "plain")}
+    rows, faults = [], []
+    for b in bins:
+        files = {"scan": b,
+                 "labels": b.parents[1] / "labels" / f"{b.stem}.label"}
+        for kind, (nat, plain) in readers.items():
+            got, want = nat(files[kind]), plain(files[kind])
+            if got.dtype != want.dtype or not np.array_equal(got, want):
+                faults.append(f"{files[kind].name}: the native {kind} "
+                              "differs from its plain version")
+            times = {"native": [], "plain": []}
+            for _ in range(NATIVE_REPS):
+                for path, fn in (("native", nat), ("plain", plain)):
+                    t = time.perf_counter()
+                    fn(files[kind])
+                    times[path].append((time.perf_counter() - t) * 1e3)
+            for path in times:
+                ms[kind, path].append(statistics.median(times[path]))
+            if kind == "scan":
+                rows.append(len(got))
+    before = dict(native.READS)
+    _, batch = entry_batch(sum(entry_argv(tmp, tree), []))
+    moved = {k: native.READS[k] - before[k] for k in before}
+    if len(bins) != sum(ENTRY_SCANS) or min(moved.values()) < ENTRY_BATCH:
+        faults.append(f"{len(bins)} scans read; the loader's batch moved "
+                      f"native.READS by {moved} (want >= {ENTRY_BATCH})")
+    med = {f"{kind}_{path}": statistics.median(v)
+           for (kind, path), v in ms.items()}
+    log(f"[native] {len(bins)} scans of {min(rows)}-{max(rows)} points, "
+        "native equal to plain; host ms a scan (median over the scans of "
+        f"each file's median of {NATIVE_REPS} reads, page-cached) on the "
+        f"host of {card_line()}: .bin native {med['scan_native']:.3f} / "
+        f"plain {med['scan_plain']:.3f}; .label read + remap native "
+        f"{med['labels_native']:.3f} / plain {med['labels_plain']:.3f}; "
+        f"the loader's first batch of {ENTRY_BATCH} moved native.READS by "
+        f"{moved}")
+    report["native"] = dict(ms={f"{k}_{p}": v for (k, p), v in ms.items()},
+                            median_ms=med, points=rows, reads_moved=moved,
+                            host_of=card_line())
+    if faults:
+        raise SystemExit("native phase: " + "; ".join(faults))
+
+
 def _run_logs(log_dir):
     """The log text, metrics records and checkpoints of a train CLI run."""
     exp = next(Path(log_dir).glob("**/ckp")).parent
@@ -2328,14 +2406,17 @@ def entry_point_phase(report, tmp, tree):
 
     step_ms = [r["step_time"] * 1e3 for r in steps]
     med = statistics.median(step_ms)
+    data_ms = statistics.median(r["data_time"] * 1e3 for r in steps)
     miou = evals[-1]["val_miou"] if evals else float("nan")
     log(f"[entry] train CLI, batch {ENTRY_BATCH}: step ms {med:.1f} (median "
         f"of {len(step_ms)}: {', '.join(f'{t:.1f}' for t in step_ms)}), "
+        f"data_time ms {data_ms:.1f} (median), "
         f"{ENTRY_BATCH * 1e3 / med:.2f} scans/s, val mIoU {miou:.2f}; "
         f"{wall:.1f} s for train, resume and infer; launches {launches}")
     report["entry_point"] = dict(
         steps=steps, evals=evals, checkpoints=ckps, dumped=dumped,
-        step_ms_median=med, scans_per_s=ENTRY_BATCH * 1e3 / med,
+        step_ms_median=med, data_ms_median=data_ms,
+        scans_per_s=ENTRY_BATCH * 1e3 / med,
         val_miou=miou, wall_s=wall, launches=launches,
         plain_on_cuda=plain_on_cuda)
     faults = []
@@ -5165,6 +5246,9 @@ def run_phases(args, report, t_start, cudnn_tf32) -> int:
         phase_done("minkunet")
     with tempfile.TemporaryDirectory(prefix="entry_", dir=scratch) as tmp:
         tree = CPU_REFS.entry_tree(tmp) if want & TREE_PHASES else None
+        if "native" in want:
+            native_phase(report, tmp, tree)
+            phase_done("native")
         if "bottleneck" in want:
             bn_rows, got["bottleneck"], got["bottleneck_entry"] = (
                 bottleneck_phases(report, tmp, tree, rows))

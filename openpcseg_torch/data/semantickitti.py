@@ -1,4 +1,4 @@
-"""SemanticKITTI / ScribbleKITTI raw scan reader (host, numpy only).
+"""SemanticKITTI / ScribbleKITTI raw scan reader (host).
 
 Re-implementation of the reference reader
 (reference: pcseg/data/dataset/semantickitti/semantickitti.py:19-182):
@@ -10,9 +10,12 @@ train-time scan-mix dispatch: p=0.5 LaserMix else PolarMix with a second
 random scan (reference :117-167).
 
 A copy of ``openpcseg_tpu/data/semantickitti.py`` (the port imports
-nothing of the JAX package), held to it by tests/test_torch_data.py. It reads
-scans and labels with ``np.fromfile`` only: the JAX package's optional
-native reader (``openpcseg_tpu/native.py``) is not ported.
+nothing of the JAX package), held to it by tests/test_torch_data.py and
+tests/test_torch_native.py. It reads scans and labels through the port's
+native readers (``openpcseg_torch/native.py``), as the JAX package does
+wherever g++ builds its own: at most 200,000 rows a file, and a label id
+of 260 or more (past the lookup table) becomes 0. Where they cannot be
+built it raises; it does not read with numpy instead.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from .. import native
 from . import augment
 from .semantickitti_meta import LEARNING_MAP_LUT, SPLIT_SEQUENCES
 
@@ -104,7 +108,7 @@ class SemantickittiDataset:
     # ------------------------------------------------------------- loaders --
 
     def _load_points(self, path: str) -> np.ndarray:
-        return np.fromfile(path, dtype=np.float32).reshape(-1, 4)
+        return native.load_kitti_scan(path)
 
     def _load_labels(self, bin_path: str, n: int) -> np.ndarray:
         if self.split == "test":
@@ -114,9 +118,7 @@ class SemantickittiDataset:
             label_path = label_path.replace("velodyne", "scribbles")[:-3] + "label"
         else:
             label_path = bin_path.replace("velodyne", "labels")[:-3] + "label"
-        raw = np.fromfile(label_path, dtype=np.uint32)
-        sem = (raw & 0xFFFF).astype(np.int64)
-        return LEARNING_MAP_LUT[np.clip(sem, 0, len(LEARNING_MAP_LUT) - 1)]
+        return native.load_kitti_labels(label_path, LEARNING_MAP_LUT)
 
     @staticmethod
     def get_points_ring_id(points: np.ndarray) -> np.ndarray:

@@ -22,10 +22,12 @@ setup(
     packages=find_packages(exclude=["tests", "tools"]),
     # the PyTorch / CUDA port ships its kernel sources: they are compiled
     # with nvcc at first use on a CUDA tensor (openpcseg_torch/ops/
-    # cuda_lib.py); the golden gates its golden_run reads; and its
-    # torchrun launchers
+    # cuda_lib.py); its native readers' source, compiled with g++ at first
+    # use (openpcseg_torch/native.py); the golden gates its golden_run
+    # reads; and its torchrun launchers
     package_data={"openpcseg_torch": ["csrc/*.cu", "csrc/*.cuh",
-                                      "cli/*.json", "cli/*.sh"]},
+                                      "csrc/*.cpp", "cli/*.json",
+                                      "cli/*.sh"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "orbax-checkpoint", "numpy",
                       "pyyaml"],
