@@ -41,9 +41,9 @@ p2r_bwd).
 The range models run float32 dense convs on cuDNN, no kernel of the port.
 
 Phases (any failure exits non-zero and prints no result line), which run
-in the order 1-3, 7, 4-6, 8, 9, 22, 19, 11, 14, 18, 12, 13, 10, 15, 16,
-17, 20, 21 (PHASES: the phases that need no CPU reference step run between
-those that do, so the reference process keeps ahead of them):
+in the order 1-3, 7, 4-6, 8, 9, 22, 19, 11, 14, 18, 12, 13, 10, 23, 15,
+16, 17, 20, 21 (PHASES: the phases that need no CPU reference step run
+between those that do, so the reference process keeps ahead of them):
   1. the card's name and power limit; TF32 off for matmuls and cuDNN
      (back to torch's default, TF32 convs, for phases 13, 14 and 21);
      then the CPU reference process starts (python3 chip_smoke.py
@@ -51,8 +51,8 @@ those that do, so the reference process keeps ahead of them):
      reference, of the range models' and of the entry reference, then
      the Waymo entry tree, REF_JOBS, in a niced process of 4 torch
      threads; each reference waits for its file and the script kills the
-     process when it ends; RPVNet and Waymo take five of their ten draws,
-     TRAIN_REF_DRAWS_OF);
+     process when it ends; every model but the Bottleneck takes five of
+     its ten draws, TRAIN_REF_DRAWS_OF);
   2. build the kernels with nvcc (sm_90a) from the checkout's sources, and
      log ptxas's registers and spills per kernel instance;
   3. kernel phase: the launch configuration of the two gather kernels at
@@ -84,8 +84,9 @@ those that do, so the reference process keeps ahead of them):
      then a torch.profiler window over one more step (device time per
      kernel and per family beside its bound, device idle share);
   9. training-reference phase: one train_step of the same numpy-seeded
-     weights on an 8192-point scan and on nine feature-perturbed copies
-     of it, GPU (bf16, kernels) against CPU (float32, plain versions):
+     weights on an 8192-point scan and on four of its nine
+     feature-perturbed copies (TRAIN_REF_DRAWS_OF), GPU (bf16, kernels)
+     against CPU (float32, plain versions):
      loss and gradient cosines, held to the rule over the draws that
      JAX's reading sets (the mean loss difference within twice JAX's
      mean; each draw's cosines within 0.02 of JAX's on that draw) and to
@@ -172,8 +173,11 @@ those that do, so the reference process keeps ahead of them):
      max_memory_allocated), and the infer CLI on the _infer
      yaml streaming the unlabeled sequence from the last checkpoint (one
      .npy a frame, one id a point);
- 16. every other shipped Waymo / nuScenes yaml (YAML_CELLS) at full width
-     and batch 1: one train and one eval step on a batch of its own view
+ 16. every shipped yaml that no other phase drives (YAML_CELLS: the other
+     Waymo / nuScenes yamls, on the Waymo and a ray-cast nuScenes tree,
+     and the other SemanticKITTI ones on the entry tree), and SPVCNN
+     mk34_cr10 with MODEL.MULTI_SCALE "none", at full width and batch 1:
+     one train and one eval step on a batch of its own view
      (voxel_overflow 0, finite loss, hist = valid points, its family's
      counters launched, none for CENet), then nuScenes CENet through the
      CLIs at batch 1 and its submission dump (lidarseg/val/
@@ -233,7 +237,19 @@ those that do, so the reference process keeps ahead of them):
      .bin and .label of the tree read through them and through their
      plain numpy versions (equal arrays), the train CLI loader's first
      batch over the tree (native.READS must move), and the host ms a
-     scan of each path (the .bin read; the .label read and remapped).
+     scan of each path (the .bin read; the .label read and remapped);
+ 23. jax_ckpt phase (on the entry tree): a JAX training run carried to the
+     card, as JAX_CKPT_FIXTURE (made by tests/jax_ckpt_fixture.py on the
+     CPU, where JAX runs) holds it: the narrow
+     MinkUNet of JAX_CKPT_SETS after two float32 SGD steps, converted,
+     restored by Trainer.restore (step, epoch and every momentum buffer on
+     the card); its bf16 eval logits on the 8192-point scan of SEED
+     against JAX's float32 ones (the serving rule), one bf16 train step
+     against JAX's float32 step under train_ref_rule of JAX's own reading
+     on the fixture (the expectations' `reading`); the train CLI with
+     --ckp (resumes at the fixture's epoch + 1 for one epoch) and the
+     infer CLI with --ckp (the raw-id dump); every counter of
+     MINK_COUNTERS over the phase.
 The run's total time is logged.
 Every kernel case carries CUDA-event ms of the wrapper and of the plain
 version, the kernel's profiler device ms, and its bound (bound_ms: bytes
@@ -244,9 +260,9 @@ K8 also the time of torch.sparse.mm over the same table as a CSR matrix (library
 --phases runs the named phases alone, after the build, in their order,
 and prints no result line: cases (3 and 7: the kernel half of an A/B
 call), minkunet (4-6, 8, 9), native (22), bottleneck (19), spvcnn (11),
-range (14), dp (18), cylinder (12), rpvnet (13), entry (10), waymo (15),
-yamls (16, with waymo), tta (17, with entry), loss_zoo and loss_clis
-(20), crf (21).
+range (14), dp (18), cylinder (12), rpvnet (13), entry (10), jax_ckpt
+(23), waymo (15), yamls (16, with waymo), tta (17, with entry), loss_zoo
+and loss_clis (20), crf (21).
 Then the kernel JSON line, the card line and the result line.
 The full report (every kernel case, request, step and profiler row) goes
 to --report, by default build/openpcseg_torch/chip_smoke.json.
@@ -434,6 +450,18 @@ NATIVE_REPS = 5          # timed reads of each entry-tree file a reader path
 # hold the whole run inside its time (the CPU step at the yaml's depth took
 # 111 s of the card machine's CPU); its batch and widths are the CLI's
 ENTRY_REF_LAYERS = [1] * 8
+# == the jax_ckpt phase: a JAX run's checkpoint, converted where JAX runs
+# (tests/jax_ckpt_fixture.py: the entry yaml's
+# MinkUNet narrowed by JAX_CKPT_SETS, which keeps the fixture and its
+# expectations under 4 MB, after two float32 SGD steps on the 8192-point
+# scan of SEED at batch 1 and cap JAX_CKPT_CAP), and what JAX computed
+# from it (_expect.npz: its float32 eval logits on that scan, its third
+# step's loss, lr, raw gradient and parameters, and its own bf16 step
+# against its float32 one on that scan and nine feature-perturbed copies,
+# `reading`, whose rule the card's step on the scan is held to)
+JAX_CKPT_FIXTURE = "openpcseg_torch/tools/fixtures/jax_ckpt_mk_narrow"
+JAX_CKPT_SETS = ("MODEL.NUM_LAYER", "[1,1,1,1,1,1,1,1]", "MODEL.cr", "0.125")
+JAX_CKPT_CAP = 8192
 # == the MODEL and OPTIM blocks of tools/cfgs/fusion/semantic_kitti/
 # spvcnn_mk34_cr10.yaml: SPVCNN's serving, reference, training and entry
 # phases; its convs have MinkUNet mk34's shapes, so the kernel cases above
@@ -1923,11 +1951,12 @@ def step_against_cpu(cfgs, batch, cpu, weights_seed=None, cpu_tables=False,
 # step (range, dp) run between those that do, so the reference process
 # keeps ahead of them; --phases runs a subset, in this order
 PHASES = ("cases", "minkunet", "native", "bottleneck", "spvcnn", "range",
-          "dp", "cylinder", "rpvnet", "entry", "waymo", "yamls", "tta",
-          "loss_zoo", "loss_clis", "crf")
+          "dp", "cylinder", "rpvnet", "entry", "jax_ckpt", "waymo", "yamls",
+          "tta", "loss_zoo", "loss_clis", "crf")
 PHASE_NEEDS = {"yamls": "waymo", "tta": "entry"}   # reads what that wrote
 TREE_PHASES = {"native", "bottleneck", "spvcnn", "range", "dp", "cylinder",
-               "rpvnet", "entry", "tta", "loss_clis"}  # read the entry tree
+               "rpvnet", "entry", "jax_ckpt", "yamls", "tta",
+               "loss_clis"}  # read the entry tree
 # == the CPU float32 halves of the training references, in a process of
 # their own that starts before the build (python3 chip_smoke.py --cpu-refs
 # DIR JOB...): it takes the jobs of the phases run (REF_JOBS) in their
@@ -2095,11 +2124,13 @@ def tf32_widened(loss_mean, ref, floor, reading):
             (floor[0] + dl, floor[1] - da, floor[2] - dc))
 
 
-# the draws a model's training reference takes, where not all ten: RPVNet's
-# and Waymo's first five (the reference process's largest CPU steps), each
-# held to its row and the model's floor, the mean loss difference to twice
-# JAX's mean over those five
-TRAIN_REF_DRAWS_OF = {"RPVNet": 5, "Waymo": 5}
+# the draws a model's training reference takes, where not all ten: the
+# first five (the reference process's CPU steps are the host's largest
+# load, and on a slow host the phases waited for them), each held to its
+# row and the model's floor, the mean loss difference to twice JAX's mean
+# over those five; the Bottleneck's rule holds its ten draws as a set
+TRAIN_REF_DRAWS_OF = {"MinkUNet": 5, "SPVCNN": 5, "Cylinder_TS": 5,
+                      "RPVNet": 5, "Waymo": 5}
 
 
 def train_ref_bounds(model):
@@ -2444,6 +2475,145 @@ def entry_point_phase(report, tmp, tree):
     if faults:
         raise SystemExit("entry-point phase: " + "; ".join(faults))
     return launches
+
+
+def jax_ckpt_phase(report, tmp, tree):
+    """A JAX run resumed and served on the card (phase 23): the fixture
+    JAX_CKPT_FIXTURE through Trainer.restore, its eval logits and one train
+    step against JAX's numbers, then the train and infer CLIs with --ckp
+    over the entry tree; every counter of MINK_COUNTERS read over the
+    phase."""
+    from openpcseg_torch.cli import infer, train
+    from openpcseg_torch.data.semantickitti_meta import LEARNING_MAP_INV_LUT
+    from openpcseg_torch.engine.task import batch_to_device
+    from openpcseg_torch.engine.trainer import Trainer
+    from openpcseg_torch.models.layers import SparseConv
+    from openpcseg_torch.ops import cuda_lib
+
+    fixture = ROOT / f"{JAX_CKPT_FIXTURE}.pt"
+    want = np.load(ROOT / f"{JAX_CKPT_FIXTURE}_expect.npz")
+    base = ["--cfg_file", str(ROOT / ENTRY_CFG), "--extra_tag", "chip_smoke",
+            "--log_interval", "1"]
+    sets = ["--set", "DATA.DATA_PATH", tree, *JAX_CKPT_SETS]
+    cuda_lib.reset_counts()
+    t0 = time.perf_counter()
+    args, cfgs = train.parse_config(
+        base + ["--log_dir", f"{tmp}/jax_ckpt_restore", "--batch_size", "1",
+                "--workers", "1"] + sets
+        + ["TPU.VOXEL_CAP_PER_SCAN", str(JAX_CKPT_CAP)])
+    trainer = Trainer(args, cfgs)
+    trainer.restore(fixture)
+    task = trainer.task
+    opt = task.optimizer
+    params = [p for g in opt.param_groups for p in g["params"]]
+    restored = dict(
+        step=task.step, start_epoch=trainer.start_epoch,
+        buffers=sum(1 for p in params if opt.state[p][
+            "momentum_buffer"].is_cuda), parameters=len(params))
+    restore_s = time.perf_counter() - t0
+
+    scan = scan_for(CFGS, SEED, cap=JAX_CKPT_CAP)
+    if inputs_digest([scan], torch.nn.Module()) != str(want["scan_digest"]):
+        raise SystemExit("jax_ckpt phase: the scan differs from the one "
+                         "the fixture was made on")
+    batch = batch_to_device(scan, "cuda")
+    g = task.forward(batch)[2].float().cpu()
+    r = torch.as_tensor(want["logits"])
+    valid = torch.as_tensor(want["valid"])
+    serve = dict(
+        rel_max_err=float((g - r).abs().max() / r.abs().max()),
+        argmax_agree=float((g.argmax(-1) == r.argmax(-1))[valid].float()
+                           .mean()),
+        finite=bool(torch.isfinite(g).all()))
+    no_dropout(task.model)
+    m = task.train_step(batch)
+
+    def cos(a, b):
+        a, b = a.double(), b.double()
+        return float(a @ b / (a.norm() * b.norm()).clamp(min=1e-300))
+    grads = {n: p.grad.float().cpu().reshape(-1)
+             for n, p in task.model.named_parameters()}
+    ref = {n: torch.as_tensor(want[f"grads3/{n}"]).reshape(-1)
+           for n in grads}
+    convs = [n + ".weight" for n, mod in task.model.named_modules()
+             if isinstance(mod, SparseConv)]
+    step = dict(loss_gpu=float(m["loss"]), loss_jax=float(want["loss3"]),
+                lr=m["lr"], lr_jax=float(want["lr3"]),
+                cos_all=cos(torch.cat(list(grads.values())),
+                            torch.cat([ref[n] for n in grads])),
+                cos_conv={n: cos(grads[n], ref[n]) for n in convs})
+    step["loss_rel"] = (abs(step["loss_gpu"] - step["loss_jax"])
+                        / abs(step["loss_jax"]))
+    loss_bound, rows = train_ref_rule(tuple(map(tuple, want["reading"])))
+    trainer.close()
+
+    preds = Path(tmp) / "jax_ckpt_preds"
+    cli = base + ["--log_dir", f"{tmp}/jax_ckpt_cli", "--batch_size",
+                  str(ENTRY_BATCH), "--ckp", str(fixture)]
+    epochs = int(want["epoch"]) + 2
+    t1 = time.perf_counter()
+    if train.main(cli + ["--epochs", str(epochs)] + sets) != 0 or infer.main(
+            cli + ["--save_pred", "--save_raw_ids"] + sets
+            + ["DATA.OUTPUT_DIR", str(preds)]) != 0:
+        raise SystemExit("jax_ckpt phase: a CLI with --ckp failed")
+    cli_s = time.perf_counter() - t1
+    launches = dict(cuda_lib.LAUNCHES)
+    plain_on_cuda = dict(cuda_lib.PLAIN_ON_CUDA)
+    logs, steps, evals, ckps = _run_logs(f"{tmp}/jax_ckpt_cli")
+    legal = set(LEARNING_MAP_INV_LUT.tolist())
+    dumped = []
+    for f in sorted(preds.glob("sequences/08/predictions/*.label")):
+        ids = np.fromfile(f, dtype=np.uint32)
+        n_pts = Path(tree, "08", "velodyne", f.stem + ".bin").stat().st_size
+        dumped.append(dict(file=f.name, ids=len(ids), points=n_pts // 16,
+                           legal=set(np.unique(ids).tolist()) <= legal))
+    worst = min(step["cos_conv"].values())
+    log(f"[jax_ckpt] fixture restored: step {restored['step']}, next epoch "
+        f"{restored['start_epoch']}, {restored['buffers']} of "
+        f"{restored['parameters']} momentum buffers on the card "
+        f"({restore_s:.1f} s); eval bf16 against JAX f32: max|diff|/max|ref| "
+        f"{serve['rel_max_err']:.4f}, argmax agreement "
+        f"{serve['argmax_agree']:.4f}; train step: lr {step['lr']:.6g} (JAX "
+        f"{step['lr_jax']:.6g}), loss rel {step['loss_rel']:.4e} (bound "
+        f"{loss_bound:.4e}), whole-gradient cosine {step['cos_all']:.6f} "
+        f"(>= {rows[0][0]:.6f}), worst conv cosine {worst:.6f} (>= "
+        f"{rows[0][1]:.6f}); CLIs {cli_s:.1f} s: steps "
+        f"{[r['step'] for r in steps]}, checkpoints {ckps}, dump {dumped}; "
+        f"launches {launches}")
+    report["jax_ckpt"] = dict(
+        restored=restored, serve=serve, step=step, loss_bound=loss_bound,
+        rows=rows[0], steps=steps, evals=evals, checkpoints=ckps,
+        dumped=dumped, launches=launches, plain_on_cuda=plain_on_cuda,
+        restore_s=restore_s, cli_s=cli_s,
+        seconds=time.perf_counter() - t0)
+    faults = []
+    n_train = ENTRY_SCANS[0] // ENTRY_BATCH
+    if (restored["step"] != int(want["step"]) or restored["start_epoch"]
+            != int(want["epoch"]) + 1
+            or restored["buffers"] != restored["parameters"]):
+        faults.append(f"restored {restored}")
+    if (not serve["finite"] or serve["rel_max_err"] > 0.1
+            or serve["argmax_agree"] < 0.9):
+        faults.append(f"eval against JAX {serve}")
+    if (step["loss_rel"] > loss_bound or step["cos_all"] < rows[0][0]
+            or worst < rows[0][1]):
+        faults.append("train step against JAX outside train_ref_rule")
+    if (f"resumed from epoch {int(want['epoch'])}" not in logs
+            or ckps != [f"{epochs - 1}.pt"]
+            or [r["step"] for r in steps] != list(range(
+                int(want["step"]) + 1, int(want["step"]) + n_train + 1))
+            or not all(np.isfinite(r["loss"]) for r in steps)):
+        faults.append(f"train --ckp: steps {[r['step'] for r in steps]}, "
+                      f"checkpoints {ckps}")
+    if len(dumped) != ENTRY_SCANS[1] or not all(
+            d["ids"] == d["points"] and d["legal"] for d in dumped):
+        faults.append(f"infer --ckp dump {dumped}")
+    missing = [k for k in MINK_COUNTERS if launches[k] == 0]
+    if missing or any(plain_on_cuda.values()):
+        faults.append(f"kernels never launched {missing}, or a plain version "
+                      f"ran on the card {plain_on_cuda}")
+    if faults:
+        raise SystemExit("jax_ckpt phase: " + "; ".join(faults))
 
 
 def vmean_cases(pyr, gen):
@@ -3144,22 +3314,38 @@ TRAIN_REF_MEAN_RULE = ("Bottleneck",)
 TRAIN_REF_MODELS["Bottleneck"] = (
     BN_TRAIN_CFGS, BN_TRAIN_REF_INPUTS, JAX_BN_TRAIN_READING,
     PORT_CPU_BN_BF16_READING, "bn_train_reference", "bn-train-ref")
-# every other shipped Waymo / nuScenes yaml, one train and one eval step
-# each at full width and batch 1 on a batch of its own view, and the
-# counters its family must move (CENet: none)
+# every shipped yaml that no other phase drives, one train and one eval
+# step each at full width and batch 1 on a batch of its own view, with
+# the --set overrides of the cell and the counters its family must move
+# (CENet: none); the last cell is SPVCNN with the classifier on z3 alone
 SPV_NEED = MINK_COUNTERS + SPV_COUNTERS
 YAML_CELLS = (
-    ("tools/cfgs/voxel/waymo/minkunet_mk18_cr10.yaml", MINK_COUNTERS),
-    ("tools/cfgs/voxel/waymo/minkunet_mk34_cr10.yaml", MINK_COUNTERS),
-    ("tools/cfgs/voxel/waymo/minkunet_mk34_cr16_xyz.yaml", MINK_COUNTERS),
-    ("tools/cfgs/voxel/waymo/cylinder_cy480_cr10.yaml", CYL_NEED),
-    ("tools/cfgs/fusion/waymo/spvcnn_mk18_cr10.yaml", SPV_NEED),
-    ("tools/cfgs/fusion/waymo/spvcnn_mk34_cr16.yaml", SPV_NEED),
-    ("tools/cfgs/fusion/waymo/rpvnet_mk18_cr10.yaml", RPV_NEED),
-    ("tools/cfgs/voxel/nuscenes/minkunet_mk34_cr10.yaml", MINK_COUNTERS),
-    ("tools/cfgs/voxel/nuscenes/cylinder_cy480_cr10.yaml", CYL_NEED),
-    ("tools/cfgs/fusion/nuscenes/spvcnn_mk34_cr10.yaml", SPV_NEED),
-    ("tools/cfgs/range/nuscenes/cenet_32x1088.yaml", ()),
+    ("tools/cfgs/voxel/waymo/minkunet_mk18_cr10.yaml", MINK_COUNTERS, ()),
+    ("tools/cfgs/voxel/waymo/minkunet_mk34_cr10.yaml", MINK_COUNTERS, ()),
+    ("tools/cfgs/voxel/waymo/minkunet_mk34_cr16_xyz.yaml", MINK_COUNTERS,
+     ()),
+    ("tools/cfgs/voxel/waymo/cylinder_cy480_cr10.yaml", CYL_NEED, ()),
+    ("tools/cfgs/fusion/waymo/spvcnn_mk18_cr10.yaml", SPV_NEED, ()),
+    ("tools/cfgs/fusion/waymo/spvcnn_mk34_cr16.yaml", SPV_NEED, ()),
+    ("tools/cfgs/fusion/waymo/rpvnet_mk18_cr10.yaml", RPV_NEED, ()),
+    ("tools/cfgs/voxel/nuscenes/minkunet_mk34_cr10.yaml", MINK_COUNTERS,
+     ()),
+    ("tools/cfgs/voxel/nuscenes/cylinder_cy480_cr10.yaml", CYL_NEED, ()),
+    ("tools/cfgs/fusion/nuscenes/spvcnn_mk34_cr10.yaml", SPV_NEED, ()),
+    ("tools/cfgs/range/nuscenes/cenet_32x1088.yaml", (), ()),
+    ("tools/cfgs/voxel/semantic_kitti/minkunet_mk18_cr10.yaml",
+     MINK_COUNTERS, ()),
+    ("tools/cfgs/voxel/semantic_kitti/minkunet_mk18_cr5.yaml",
+     MINK_COUNTERS, ()),
+    ("tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr16.yaml",
+     MINK_COUNTERS, ()),
+    ("tools/cfgs/voxel/semantic_kitti/cylinder_cy480_cr5.yaml", CYL_NEED,
+     ()),
+    ("tools/cfgs/fusion/semantic_kitti/spvcnn_mk18_cr10.yaml", SPV_NEED, ()),
+    ("tools/cfgs/fusion/semantic_kitti/spvcnn_mk18_cr5.yaml", SPV_NEED, ()),
+    ("tools/cfgs/fusion/semantic_kitti/spvcnn_mk34_cr16.yaml", SPV_NEED, ()),
+    ("tools/cfgs/fusion/semantic_kitti/rpvnet_mk18_cr10.yaml", RPV_NEED, ()),
+    (SPV_ENTRY_CFG, SPV_NEED, ("MODEL.MULTI_SCALE", "none")),
 )
 NUSC_CENET_CFG = "tools/cfgs/range/nuscenes/cenet_32x1088.yaml"
 NUSC_SWEEPS = (2, 1)     # train and val sweeps of the nuScenes tree
@@ -3387,19 +3573,22 @@ def waymo_phases(report, tmp, aligned):
     return rows, launches, entry, root
 
 
-def yaml_cell(path, root, need, cudnn_tf32):
+def yaml_cell(path, root, need, cudnn_tf32, sets=()):
     """One train step and one eval step of the yaml at `path` as it stands
-    (full width, batch 1) on the first batch of its own view over the tree
-    at `root` (train and val loaders): voxel_overflow 0 on both, finite
-    loss, hist summing to the valid points, and the counters `need`
-    launched (none at all where `need` is empty). Returns its record."""
-    from openpcseg_torch.config import CfgDict, cfg_from_yaml_file
+    (with the --set overrides `sets`; full width, batch 1) on the first
+    batch of its own view over the tree at `root` (train and val loaders):
+    voxel_overflow 0 on both, finite loss, hist summing to the valid
+    points, and the counters `need` launched (none at all where `need` is
+    empty). Returns its record."""
+    from openpcseg_torch.config import (CfgDict, cfg_from_list,
+                                        cfg_from_yaml_file)
     from openpcseg_torch.data import build_dataloader
     from openpcseg_torch.engine.task import SegTask, batch_to_device
     from openpcseg_torch.ops import cuda_lib
 
     cfgs = CfgDict()
     cfg_from_yaml_file(str(ROOT / path), cfgs)
+    cfg_from_list(list(sets), cfgs)
     cfgs.DATA.DATA_PATH = str(root)
     modality = cfgs.get("MODALITY", "voxel")
     batches = {}
@@ -3425,13 +3614,15 @@ def yaml_cell(path, root, need, cudnn_tf32):
     launches = dict(cuda_lib.LAUNCHES)
     plain_on_cuda = dict(cuda_lib.PLAIN_ON_CUDA)
     valid = batches[False]["p_valid" if modality == "range" else "valid"]
-    rec = dict(yaml=path, dataset=cfgs.DATA.DATASET, model=cfgs.MODEL.NAME,
+    rec = dict(yaml=path, sets=list(sets), dataset=cfgs.DATA.DATASET,
+               model=cfgs.MODEL.NAME,
                parameters=sum(p.numel() for p in task.model.parameters()),
                loss=loss, voxel_overflow=int(m["voxel_overflow"]),
                eval_voxel_overflow=int(out["voxel_overflow"]),
                hist_sum=int(hist.sum()), valid_points=int(valid.sum()),
                seconds=secs, launches=launches)
-    log(f"[yamls] {path}: {rec['parameters']} parameters, loss {loss:.4f}, "
+    log(f"[yamls] {path} {' '.join(sets)}: {rec['parameters']} parameters, "
+        f"loss {loss:.4f}, "
         f"voxel_overflow {rec['voxel_overflow']} / "
         f"{rec['eval_voxel_overflow']}, hist {rec['hist_sum']} of "
         f"{rec['valid_points']} points, {secs:.1f} s; launches "
@@ -3442,7 +3633,7 @@ def yaml_cell(path, root, need, cudnn_tf32):
             or rec["eval_voxel_overflow"]
             or rec["hist_sum"] != rec["valid_points"] or missing or moved
             or any(plain_on_cuda.values())):
-        raise SystemExit(f"yaml cell {path}: {rec}; never launched "
+        raise SystemExit(f"yaml cell {path} {sets}: {rec}; never launched "
                          f"{missing}, launched {moved}, plain versions on "
                          f"the card {plain_on_cuda}")
     return rec
@@ -3484,27 +3675,29 @@ def nuscenes_dump_phase(report, tmp, root):
                          f"val tokens {sorted(tokens)}")
 
 
-def yaml_phases(report, tmp, waymo_root, cudnn_tf32):
-    """Every other shipped Waymo and nuScenes yaml (YAML_CELLS), one train
-    and one eval step each (yaml_cell), on the Waymo tree and a ray-cast
-    nuScenes tree; then nuScenes CENet's submission dump. Returns the
+def yaml_phases(report, tmp, waymo_root, kitti_root, cudnn_tf32):
+    """Every yaml of YAML_CELLS, one train and one eval step each
+    (yaml_cell), on the Waymo tree, a ray-cast nuScenes tree and the entry
+    SemanticKITTI tree; then nuScenes CENet's submission dump. Returns the
     launches summed over the cells."""
     from openpcseg_torch.data.raycast_nuscenes import write_tree
 
     t0 = time.perf_counter()
     nusc = write_tree(Path(tmp) / "nuscenes", *NUSC_SWEEPS)
+    roots = {"waymo": waymo_root, "nuscenes": nusc,
+             "semantic_kitti": kitti_root}
     cells, total = [], {}
-    for path, need in YAML_CELLS:
-        root = waymo_root if "/waymo/" in path else nusc
-        rec = yaml_cell(path, root, need, cudnn_tf32)
+    for path, need, sets in YAML_CELLS:
+        rec = yaml_cell(path, roots[Path(path).parent.name], need,
+                        cudnn_tf32, sets)
         cells.append(rec)
         for k, v in rec["launches"].items():
             total[k] = total.get(k, 0) + v
     nuscenes_dump_phase(report, tmp, nusc)
     report["yaml_cells"] = cells
     report["yaml_phases_s"] = time.perf_counter() - t0
-    log(f"[yamls] {len(cells)} yamls, one train and one eval step each, and "
-        f"the nuScenes dump: {report['yaml_phases_s']:.1f} s")
+    log(f"[yamls] {len(cells)} cells, one train and one eval step each, "
+        f"and the nuScenes dump: {report['yaml_phases_s']:.1f} s")
     return total
 
 
@@ -5278,13 +5471,16 @@ def run_phases(args, report, t_start, cudnn_tf32) -> int:
         if "entry" in want:
             got["entry"] = entry_point_phase(report, tmp, tree)
             phase_done("entry")
+        if "jax_ckpt" in want:
+            jax_ckpt_phase(report, tmp, tree)
+            phase_done("jax_ckpt")
         if "waymo" in want:
             waymo_rows, got["waymo"], got["waymo_entry"], root = (
                 waymo_phases(report, tmp, rows))
             more_rows += waymo_rows
             phase_done("waymo")
         if "yamls" in want:
-            got["yaml"] = yaml_phases(report, tmp, root, cudnn_tf32)
+            got["yaml"] = yaml_phases(report, tmp, root, tree, cudnn_tf32)
             phase_done("yamls")
         if "tta" in want:
             got["tta"] = tta_phase(report, tmp, tree, cudnn_tf32)

@@ -202,14 +202,20 @@ class Trainer:
 
     def restore(self, path) -> None:
         """Model, optimizer (its momentum buffers on the model's device),
-        step, generator, loss state and epoch from a checkpoint file."""
+        step, generator, loss state and epoch from a checkpoint file. A
+        checkpoint carried over from a JAX run (``utils/convert.py
+        jax_state_to_torch``) holds the run's seed in place of a
+        generator's state: the task's generator is seeded with it."""
         payload = torch.load(path, map_location=self.device,
                              weights_only=True)
         task = self.task
         task.model.load_state_dict(payload["model"])
         task.optimizer.load_state_dict(payload["optimizer"])
         task.step = int(payload["step"])
-        task.generator.set_state(payload["generator"].cpu())
+        if isinstance(payload["generator"], int):
+            task.generator.manual_seed(payload["generator"])
+        else:
+            task.generator.set_state(payload["generator"].cpu())
         task.loss_state = payload.get("loss_state", task.loss_state)
         self.start_epoch = int(payload["epoch"]) + 1
         self.logger.info(f"resumed from epoch {int(payload['epoch'])} "

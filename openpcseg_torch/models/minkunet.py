@@ -32,7 +32,11 @@ class MinkUNet(nn.Module):
     DEVOX_LEVELS = (4, 2, 0)
 
     def __init__(self, model_cfgs: Dict[str, Any], num_class: int,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 multi_scale: bool = True):
+        """`multi_scale` False: the classifier reads the last level's
+        features alone, cs[8] x expansion wide (SPVCNN's and RPVNet's
+        MULTI_SCALE other than "concat")."""
         super().__init__()
         cfg = model_cfgs
         self.in_dim = cfg.get("IN_FEATURE_DIM", 4)
@@ -74,8 +78,9 @@ class MinkUNet(nn.Module):
                 block_cls, planes + skips[3 - i], planes, num_layer[4 + i],
                 cdt))
             c = planes * exp
-        self.classifier = nn.Linear((cs[4] + cs[6] + cs[8]) * exp,
-                                    num_class)
+        self.multi_scale = multi_scale
+        width = cs[4] + cs[6] + cs[8] if multi_scale else cs[8]
+        self.classifier = nn.Linear(width * exp, num_class)
 
     @classmethod
     def geometry_spec(cls) -> dict:

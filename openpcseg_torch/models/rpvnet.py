@@ -12,8 +12,9 @@ mean-voxelize (levels 4 and 2, ``ops.voxelize.voxelize_mean``), the range
 branch by the mean of the points in each pixel (``ops.range_fusion
 scatter_mean``). The points are the level-0 voxel sites, each with the
 pxpy of its representative point (``SegTask``); the classifier reads the
-concatenation [z1, z2, z3] in float32 (JAX's default MULTI_SCALE
-"concat"; no shipped config sets another).
+concatenation [z1, z2, z3] in float32 under MULTI_SCALE "concat" (JAX's
+default), and z3 alone, cs[8] wide, under any other value (JAX
+rpvnet.py:232-235); z1 and z2 feed the gates either way.
 
 The range branch is NCHW inside (the loader's NHWC image is transposed at
 the edge) and float32, as JAX's (its ``nn.Conv`` has no dtype and the
@@ -124,7 +125,8 @@ class RPVNet(MinkUNet):
         cfg = dict(model_cfgs)
         cfg.setdefault("IN_FEATURE_DIM", 5)
         cfg.setdefault("BLOCK", "ResBlock")
-        super().__init__(cfg, num_class, compute_dtype)
+        super().__init__(cfg, num_class, compute_dtype,
+                         cfg.get("MULTI_SCALE", "concat") == "concat")
         if self.expansion != 1:
             raise ValueError(
                 f"RPVNet with BLOCK {cfg['BLOCK']!r}: the gates add the "
@@ -220,5 +222,6 @@ class RPVNet(MinkUNet):
 
         # gate 3
         z3 = pyr.devox[0].apply(y) + r2p(r) + pt[3](z2, valid)
-        logits = self.classifier(torch.cat([z1, z2, z3], -1).float())
+        feat = torch.cat([z1, z2, z3], -1) if self.multi_scale else z3
+        logits = self.classifier(feat.float())
         return torch.where(valid[:, None], logits, 0.0)

@@ -9,8 +9,9 @@ points and a point MLP of the previous point features is added (z1, z2,
 z3); z1 and z2 are mean-voxelized back into levels 4 and 2
 (``ops.voxelize.voxelize_mean`` over ``pyr.p2v``), with dropout after each
 mean-voxelize while training, and feed the decoder. The float32 classifier
-reads the concatenation [z1, z2, z3] (JAX's default MULTI_SCALE "concat";
-no shipped config sets another).
+reads the concatenation [z1, z2, z3] under MULTI_SCALE "concat" (JAX's
+default), and z3 alone, cs[8] x expansion wide, under any other value
+(JAX spvcnn.py:142-145).
 
 Types follow JAX's: the point MLP's Linear holds float32 parameters, so it
 computes in float32 on a bf16 input, as flax's promoting ``nn.Dense``
@@ -60,7 +61,8 @@ class SPVCNN(MinkUNet):
 
     def __init__(self, model_cfgs: Dict[str, Any], num_class: int,
                  compute_dtype: torch.dtype = torch.float32):
-        super().__init__(model_cfgs, num_class, compute_dtype)
+        super().__init__(model_cfgs, num_class, compute_dtype,
+                         model_cfgs.get("MULTI_SCALE", "concat") == "concat")
         cr = model_cfgs.get("cr", 1.0)
         cs = [int(cr * x) for x in model_cfgs.get(
             "PLANES", [32, 32, 64, 128, 256, 256, 128, 96, 96])]
@@ -109,5 +111,6 @@ class SPVCNN(MinkUNet):
         y = self._up(3, y, feats[0], lv)
 
         z3 = pyr.devox[0].apply(y) + pt[2](z2, valid)
-        logits = self.classifier(torch.cat([z1, z2, z3], dim=-1).float())
+        feat = torch.cat([z1, z2, z3], dim=-1) if self.multi_scale else z3
+        logits = self.classifier(feat.float())
         return torch.where(valid[:, None], logits, 0.0)

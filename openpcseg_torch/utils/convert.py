@@ -31,6 +31,11 @@ parameter and buffer of an ``openpcseg_torch.models.MinkUNet``, ``SPVCNN``,
 
 It raises if any flax leaf goes unused or any torch tensor stays unfilled.
 Plain numpy + torch: the caller converts jax arrays with ``np.asarray``.
+
+``jax_state_to_torch`` carries a whole JAX training state (weights, BN
+statistics, optax's moments, the step, EQLv2's loss state) into the
+checkpoint payload of the port's Trainer, the moments through the same
+walk as their parameters.
 """
 from __future__ import annotations
 
@@ -54,7 +59,11 @@ def _flatten(tree: Dict[str, Any], prefix: Path = ()) -> Dict[Path, np.ndarray]:
 
 
 class _Loader:
-    def __init__(self, params, batch_stats, model):
+    """The walk's state. With a `sink` dict, `put` keeps each value there
+    under its tensor's id and leaves the model as it is."""
+
+    def __init__(self, params, batch_stats, model, sink=None):
+        self.sink = sink
         self.src = {("params",) + p: v for p, v in _flatten(params).items()}
         self.src.update({("batch_stats",) + p: v
                          for p, v in _flatten(batch_stats).items()})
@@ -82,8 +91,11 @@ class _Loader:
         if tuple(v.shape) != tuple(t.shape):
             raise ValueError(f"{self.names[id(t)]}: flax shape "
                              f"{tuple(v.shape)} != torch {tuple(t.shape)}")
-        with torch.no_grad():
-            t.copy_(v)
+        if self.sink is not None:
+            self.sink[id(t)] = v.to(t.device)
+        else:
+            with torch.no_grad():
+                t.copy_(v)
         self.filled.add(id(t))
 
     def conv(self, conv, path: Path, stack=None) -> None:
@@ -331,26 +343,21 @@ def _check(ld) -> None:
         raise ValueError(f"torch tensors left unfilled: {unfilled}")
 
 
-def jax_params_to_torch(params, batch_stats, model,
-                        scan_blocks: bool = True):
-    """Fill `model` (openpcseg_torch MinkUNet, SPVCNN, RPVNet, Cylinder_TS,
-    CENet, FIDNet, RangeNet or SalsaNext) from flax variables; returns the
-    model.
-    scan_blocks=False matches OPENPCSEG_SCAN_BLOCKS=0 trees. The walk is
-    flax's creation order: for SPVCNN the point MLPs come after the down
-    stages and after up stages 1 and 3."""
-    ld = _Loader(params, batch_stats, model)
+def _walk(ld, model, scan_blocks: bool) -> None:
+    """Every variable of `model` in flax's creation order, then _check.
+    For SPVCNN the point MLPs come after the down stages and after up
+    stages 1 and 3."""
     if type(model).__name__ == "RPVNet":
         ld.rpvnet(model, scan_blocks)
         _check(ld)
-        return model
+        return
     walk = {"Cylinder_TS": ld.cylinder, "CENet": ld.cenet,
             "FIDNet": ld.fidnet, "SalsaNext": ld.salsanext,
             "RangeNet": ld.rangenet}.get(type(model).__name__)
     if walk is not None:
         walk(model)
         _check(ld)
-        return model
+        return
     pts = list(getattr(model, "point_transforms", ()))
     for blk in model.stem:
         ld.basic(blk, (ld.next("BasicConvBlock"),))
@@ -365,4 +372,100 @@ def jax_params_to_torch(params, batch_stats, model,
         ld.point_transform(pts[2])
     ld.dense(model.classifier, ("classifier",))
     _check(ld)
+
+
+def jax_params_to_torch(params, batch_stats, model,
+                        scan_blocks: bool = True):
+    """Fill `model` (openpcseg_torch MinkUNet, SPVCNN, RPVNet, Cylinder_TS,
+    CENet, FIDNet, RangeNet or SalsaNext) from flax variables; returns the
+    model. scan_blocks=False matches OPENPCSEG_SCAN_BLOCKS=0 trees."""
+    _walk(_Loader(params, batch_stats, model), model, scan_blocks)
     return model
+
+
+def _moved(tree, batch_stats, model, scan_blocks: bool):
+    """{parameter: tensor} of a tree shaped as flax's params (an optimizer
+    moment), each leaf moved into its parameter's layout by the walk that
+    fills the parameters: a reshape, a transpose, a flip or one slice of a
+    stack only moves values, so the moments land exactly where their
+    parameters do. The model is left as it was."""
+    ld = _Loader(tree, batch_stats, model, sink={})
+    _walk(ld, model, scan_blocks)
+    return {p: ld.sink[id(p)] for p in model.parameters()}
+
+
+def _state_tree(tree, like, path: str):
+    """The numpy loss-state `tree` as tensors shaped and typed as `like`
+    (the port's own loss state); a key or shape that differs raises and
+    names its path."""
+    if hasattr(like, "items"):
+        if not hasattr(tree, "items") or set(tree) != set(like):
+            raise ValueError(
+                f"loss_state{path}: JAX holds "
+                f"{sorted(tree) if hasattr(tree, 'items') else type(tree)}, "
+                f"the port {sorted(like)}")
+        return {k: _state_tree(tree[k], like[k], f"{path}/{k}")
+                for k in like}
+    v = torch.as_tensor(np.array(tree), dtype=like.dtype)
+    if tuple(v.shape) != tuple(like.shape):
+        raise ValueError(f"loss_state{path}: JAX shape {tuple(v.shape)} != "
+                         f"the port's {tuple(like.shape)}")
+    return v
+
+
+def jax_state_to_torch(state, task, epoch: int, seed: int,
+                       scan_blocks: bool = True) -> Dict[str, Any]:
+    """A JAX run's training state as the checkpoint payload the port's
+    ``Trainer.save_checkpoint`` writes and ``Trainer.restore`` /
+    ``load_pretrained`` read: ``model``, ``optimizer`` (state dicts),
+    ``step``, ``epoch``, ``generator`` and ``loss_state``.
+
+    `state` holds numpy trees: ``params`` and ``batch_stats`` (flax's),
+    ``step`` (int), ``loss_state`` (EQLv2's buffers, or {}) and ``opt``,
+    the optax state as ``{"kind": "trace", "trace": tree}`` (sgd, sgd_fc)
+    or ``{"kind": "adam", "count": int, "mu": tree, "nu": tree}`` (adam,
+    adamw, adam_onecycle; tools/scripts/jax_ckpt_to_torch.py reads it
+    from an orbax checkpoint). `task` is the port's ``SegTask`` of the same
+    config: its model is filled (``jax_params_to_torch``) and its
+    optimizer given, for every parameter by identity (sgd_fc keeps the
+    classifier in a group of its own), optax's trace as SGD's
+    ``momentum_buffer``, or mu, nu and count as Adam's / AdamW's
+    ``exp_avg``, ``exp_avg_sq`` and ``step``; every buffer is set, at step
+    0 too (torch makes them at the first step, optax's start at zeros).
+    Any flax leaf left unused, tensor left unfilled or shape that differs
+    raises and names it.
+
+    ``generator`` is the run's `seed`, not a generator's state: JAX's
+    PRNG key has no torch counterpart (dropout masks never matched bit for
+    bit), so ``Trainer.restore`` seeds the task's generator with it on
+    whatever device the task runs."""
+    model, opt = task.model, task.optimizer
+    if opt is None:
+        raise ValueError("jax_state_to_torch needs a task with an OPTIM "
+                         "block")
+    jax_params_to_torch(state["params"], state["batch_stats"], model,
+                        scan_blocks)
+    o = state["opt"]
+    sgd = isinstance(opt, torch.optim.SGD)
+    if o["kind"] != ("trace" if sgd else "adam") or not (
+            sgd or isinstance(opt, (torch.optim.Adam, torch.optim.AdamW))):
+        raise ValueError(f"the JAX optimizer state is optax's {o['kind']}, "
+                         f"the port's optimizer {type(opt).__name__}")
+    moments = {k: _moved(o[k], state["batch_stats"], model, scan_blocks)
+               for k in (("trace",) if sgd else ("mu", "nu"))}
+    opt.state.clear()
+    for group in opt.param_groups:
+        for p in group["params"]:
+            if sgd:
+                opt.state[p] = {"momentum_buffer": moments["trace"][p]}
+            else:
+                opt.state[p] = {
+                    "step": torch.tensor(float(o["count"]),
+                                         dtype=torch.float32),
+                    "exp_avg": moments["mu"][p],
+                    "exp_avg_sq": moments["nu"][p]}
+    return {"model": model.state_dict(), "optimizer": opt.state_dict(),
+            "step": int(state["step"]), "epoch": int(epoch),
+            "generator": int(seed),
+            "loss_state": _state_tree(state.get("loss_state", {}),
+                                      task.loss_state, "")}

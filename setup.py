@@ -24,10 +24,11 @@ setup(
     # with nvcc at first use on a CUDA tensor (openpcseg_torch/ops/
     # cuda_lib.py); its native readers' source, compiled with g++ at first
     # use (openpcseg_torch/native.py); the golden gates its golden_run
-    # reads; and its torchrun launchers
+    # reads; its torchrun launchers; and the JAX checkpoint fixture its
+    # card check restores (tools/fixtures)
     package_data={"openpcseg_torch": ["csrc/*.cu", "csrc/*.cuh",
                                       "csrc/*.cpp", "cli/*.json",
-                                      "cli/*.sh"]},
+                                      "cli/*.sh", "tools/fixtures/*"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "orbax-checkpoint", "numpy",
                       "pyyaml"],

@@ -112,8 +112,8 @@ def test_chip_smoke_rpvnet_is_the_mk34_cr17_5_config():
 def test_chip_smoke_waymo_is_the_mk34_cr16_config():
     """chip_smoke.py's Waymo main path is the shipped mk34_cr16 yaml as it
     stands (its _infer twin differs only in the DATA keys of streaming),
-    and its kernel shapes come from the yaml's widths; its yaml cells are
-    every other shipped Waymo / nuScenes yaml."""
+    and its kernel shapes come from the yaml's widths; its yaml cells,
+    with the yamls its other phases drive, are all 29 shipped yamls."""
     import chip_smoke
     cfg = yaml.safe_load((ROOT / chip_smoke.WAYMO_CFG).read_text())
     assert chip_smoke.WAYMO_MODEL_CFG == cfg["MODEL"]
@@ -134,11 +134,15 @@ def test_chip_smoke_waymo_is_the_mk34_cr16_config():
     assert ups == [(3, 409, 409), (2, 409, 204), (1, 204, 153),
                    (0, 153, 153)]
     assert devox == [(4, 409), (2, 204)]
-    shipped = {str(p.relative_to(ROOT)) for d in ("waymo", "nuscenes")
-               for p in ROOT.glob(f"tools/cfgs/*/{d}/*.yaml")}
-    cells = {p for p, _ in chip_smoke.YAML_CELLS}
-    assert cells | {chip_smoke.WAYMO_CFG, chip_smoke.WAYMO_INFER_CFG} == (
-        shipped) and len(shipped) == 13
+    shipped = {str(p.relative_to(ROOT))
+               for p in ROOT.glob("tools/cfgs/*/*/*.yaml")}
+    cells = {p for p, _, _ in chip_smoke.YAML_CELLS}
+    driven = {chip_smoke.ENTRY_CFG, chip_smoke.SPV_ENTRY_CFG,
+              chip_smoke.CYL_ENTRY_CFG, chip_smoke.RPV_ENTRY_CFG,
+              chip_smoke.WAYMO_CFG, chip_smoke.WAYMO_INFER_CFG} | {
+        chip_smoke.RANGE_CFG.format(m.lower())
+        for m in chip_smoke.RANGE_MODELS}
+    assert cells | driven == shipped and len(shipped) == 29
 
 
 def test_range_fusion_wrappers_take_their_kernels_on_a_cuda_tensor(
