@@ -156,8 +156,9 @@ between those that do, so the reference process keeps ahead of them):
      scans/s, one profiled step's device ms, its dense-conv share and
      idle share); then CENet's yaml through the train CLI at batch 2 (an
      epoch, a resumed second) and the infer CLI with --save_pred
-     --save_raw_ids (one raw id per pixel); no counter of the port's
-     kernels may move over the phase;
+     --save_raw_ids (one raw id per pixel; its loader must project through
+     native.range_project, and the data_time median is logged); no
+     counter of the port's kernels may move over the phase;
  15. Waymo MinkUNet mk34_cr16 phases (the yaml as it stands, caps 196,608
      points and 163,840 voxels): every kernel case at its widths
      (mink_shapes of its MODEL block, the _xyz yaml's 3-channel stem, K7 /
@@ -238,6 +239,12 @@ between those that do, so the reference process keeps ahead of them):
      plain numpy versions (equal arrays), the train CLI loader's first
      batch over the tree (native.READS must move), and the host ms a
      scan of each path (the .bin read; the .label read and remapped);
+     then the native range projection (JAX's C++ z-buffer) of the
+     ray-cast scan of SEED at 64 x 2048: its pixels against a CPU
+     machine's output of the same scan (RANGE_NATIVE_FIXTURE, at most
+     PROJECTION_FIXTURE_PIXELS differ)
+     and against its plain numpy version (at most PROJECTION_PLAIN_SHARE
+     of the image), and the host ms of each;
  23. jax_ckpt phase (on the entry tree): a JAX training run carried to the
      card, as JAX_CKPT_FIXTURE (made by tests/jax_ckpt_fixture.py on the
      CPU, where JAX runs) holds it: the narrow
@@ -445,6 +452,19 @@ ENTRY_CFG = "tools/cfgs/voxel/semantic_kitti/minkunet_mk34_cr10.yaml"
 ENTRY_BATCH = 2
 ENTRY_SCANS = (4, 2)
 NATIVE_REPS = 5          # timed reads of each entry-tree file a reader path
+# the native range projection (native_phase): the ray-cast scan of SEED
+# projected at 64 x 2048 on a CPU machine by the same source with the
+# same flags (tests/test_torch_range_native.py writes it and holds it to
+# the output of the machine that runs the tests). Two glibc builds may
+# round atan2f / asinf apart, so at most 0.05% of the pixels (65 of
+# 131,072) may differ; the plain numpy z-buffer (float64 angles) within
+# 1% of the image (146 mask, 462 scan and 161 label pixels where the
+# fixture was made). PROJECTION_REPS timed projections of each, in turns
+RANGE_NATIVE_FIXTURE = ("openpcseg_torch/tools/fixtures/"
+                        "range_native_raycast.npz")
+PROJECTION_FIXTURE_PIXELS = 65
+PROJECTION_PLAIN_SHARE = 0.01
+PROJECTION_REPS = 10
 # the depth of the network in the entry phase's step against the CPU
 # float32 step (entry_reference): its stages cut to one block each, to
 # hold the whole run inside its time (the CPU step at the yaml's depth took
@@ -2364,7 +2384,7 @@ def native_phase(report, tmp, tree):
                 ms[kind, path].append(statistics.median(times[path]))
             if kind == "scan":
                 rows.append(len(got))
-    before = dict(native.READS)
+    before = {k: native.READS[k] for k in readers}
     _, batch = entry_batch(sum(entry_argv(tmp, tree), []))
     moved = {k: native.READS[k] - before[k] for k in before}
     if len(bins) != sum(ENTRY_SCANS) or min(moved.values()) < ENTRY_BATCH:
@@ -2383,8 +2403,93 @@ def native_phase(report, tmp, tree):
     report["native"] = dict(ms={f"{k}_{p}": v for (k, p), v in ms.items()},
                             median_ms=med, points=rows, reads_moved=moved,
                             host_of=card_line())
+    faults += projection_check(report)
     if faults:
         raise SystemExit("native phase: " + "; ".join(faults))
+
+
+def raycast_projection_input():
+    """The ray-cast scan of SEED as the range view hands it to the
+    projection: ([N, 4] float32 x, y, z, intensity, [N] int32 labels)."""
+    from openpcseg_torch.data.raycast import raycast_batch
+
+    b = raycast_batch(SEED, 1)
+    v = b["valid"][0]
+    pts = np.concatenate([b["xyz"][0][v], b["feats"][0][v, 3:4]], 1)
+    return pts.astype(np.float32), b["labels"][0][v].astype(np.int32)
+
+
+def points_digest(pts) -> str:
+    """sha256 (first 16 hex digits) of a float32 point array."""
+    return hashlib.sha256(np.ascontiguousarray(
+        pts, np.float32).tobytes()).hexdigest()[:16]
+
+
+def projection_pixels(a, b) -> dict:
+    """The pixels where two (scan, label, mask) projections differ: in the
+    mask, in any channel of the scan tensor, in the label, in any."""
+    scan = (a[0] != b[0]).any(-1)
+    label, mask = a[1] != b[1], a[2] != b[2]
+    return {"mask": int(mask.sum()), "scan": int(scan.sum()),
+            "label": int(label.sum()), "any": int((scan | label | mask).sum())}
+
+
+def projection_check(report) -> list:
+    """native_phase's range projection: the ray-cast scan of SEED through
+    native.range_project (the library native_phase built) against
+    RANGE_NATIVE_FIXTURE and against range_project_plain, and the host ms
+    of each (median of PROJECTION_REPS, in turns, after one call of each).
+    The faults found."""
+    from openpcseg_torch import native
+
+    pts, lab = raycast_projection_input()
+    want = np.load(ROOT / RANGE_NATIVE_FIXTURE)
+    same_points = str(want["points_sha256"]) == points_digest(pts)
+    args = (pts, lab, RANGE_H, RANGE_W)
+    before = native.READS["projection"]
+    nat = native.range_project(*args)
+    plain = native.range_project_plain(*args)
+    vs_fixture = projection_pixels(nat, [want[k] for k in (
+        "scan", "label", "mask")])
+    vs_plain = projection_pixels(nat, plain)
+    times = {"native": [], "plain": []}
+    for _ in range(PROJECTION_REPS):
+        for path, fn in (("native", native.range_project),
+                         ("plain", native.range_project_plain)):
+            t = time.perf_counter()
+            fn(*args)
+            times[path].append((time.perf_counter() - t) * 1e3)
+    calls = native.READS["projection"] - before
+    med = {k: statistics.median(v) for k, v in times.items()}
+    pixels = RANGE_H * RANGE_W
+    log(f"[native] range projection of the ray-cast scan of SEED "
+        f"({len(pts)} points, digest {'equal to' if same_points else 'NOT'}"
+        f" the fixture's) at {RANGE_H} x {RANGE_W}: "
+        f"{int(nat[2].sum())} pixels hold a point natively, "
+        f"{int(plain[2].sum())} by the plain version; pixels differing "
+        f"from the fixture's native output {vs_fixture} "
+        f"(at most {PROJECTION_FIXTURE_PIXELS}), from the plain version "
+        f"{vs_plain} (at most {PROJECTION_PLAIN_SHARE:.0%} of {pixels}); "
+        f"host ms (median of {PROJECTION_REPS}) on the host of "
+        f"{card_line()}: native {med['native']:.3f} / plain "
+        f"{med['plain']:.3f}; native.READS['projection'] moved by {calls}")
+    report["native_projection"] = dict(
+        points=len(pts), same_points=same_points, vs_fixture=vs_fixture,
+        vs_plain=vs_plain, ms=times, median_ms=med, calls=calls,
+        host_of=card_line())
+    faults = []
+    if vs_fixture["any"] > PROJECTION_FIXTURE_PIXELS:
+        faults.append(f"the native projection differs from the fixture's "
+                      f"on {vs_fixture} pixels (at most "
+                      f"{PROJECTION_FIXTURE_PIXELS})")
+    if vs_plain["any"] > PROJECTION_PLAIN_SHARE * pixels:
+        faults.append(f"the native projection differs from its plain "
+                      f"version on {vs_plain} pixels (at most "
+                      f"{PROJECTION_PLAIN_SHARE * pixels:.0f})")
+    if calls != 1 + PROJECTION_REPS:
+        faults.append(f"native.READS['projection'] moved by {calls}, not "
+                      f"{1 + PROJECTION_REPS}")
+    return faults
 
 
 def _run_logs(log_dir):
@@ -4080,6 +4185,7 @@ def range_entry_phase(report, tmp, tree):
     `tree` for one epoch, again to two (it must resume), then the infer
     CLI with --save_pred --save_raw_ids: one raw id per pixel of each val
     scan's image, every one in the inverse label map."""
+    from openpcseg_torch import native
     from openpcseg_torch.cli import infer, train
     from openpcseg_torch.data.semantickitti_meta import LEARNING_MAP_INV_LUT
     from openpcseg_torch.ops import cuda_lib
@@ -4090,6 +4196,7 @@ def range_entry_phase(report, tmp, tree):
             "--batch_size", str(ENTRY_BATCH), "--log_interval", "1"]
     sets = ["--set", "DATA.DATA_PATH", tree]
     cuda_lib.reset_counts()
+    projected = native.READS["projection"]
     t0 = time.perf_counter()
     for epochs in (1, 2):
         if train.main(argv + ["--epochs", str(epochs)] + sets) != 0:
@@ -4099,6 +4206,7 @@ def range_entry_phase(report, tmp, tree):
                   + ["DATA.OUTPUT_DIR", str(preds)]) != 0:
         raise SystemExit("range entry point: infer failed")
     wall = time.perf_counter() - t0
+    projected = native.READS["projection"] - projected
     no_port_kernels("range entry point")
     logs, steps, evals, ckps = _run_logs(f"{tmp}/range_logs")
     legal = set(LEARNING_MAP_INV_LUT.tolist())
@@ -4108,15 +4216,22 @@ def range_entry_phase(report, tmp, tree):
         dumped.append(dict(file=f.name, ids=len(ids),
                            legal=set(np.unique(ids).tolist()) <= legal))
     step_ms = [r["step_time"] * 1e3 for r in steps]
+    data_ms = statistics.median(r["data_time"] * 1e3 for r in steps)
     miou = evals[-1]["val_miou"] if evals else float("nan")
     log(f"[range-entry] train CLI on {RANGE_ENTRY}'s yaml, batch "
         f"{ENTRY_BATCH}: step ms {', '.join(f'{t:.1f}' for t in step_ms)}, "
-        f"val mIoU {miou:.2f} (per point, KNN); {wall:.1f} s for train, "
-        f"resume and infer; dumps {dumped}")
+        f"data_time ms {data_ms:.1f} (median), val mIoU {miou:.2f} (per "
+        f"point, KNN); {wall:.1f} s for train, resume and infer; the "
+        f"loaders projected {projected} images natively; dumps {dumped}")
     report["range_entry_point"] = dict(
         steps=steps, evals=evals, checkpoints=ckps, dumped=dumped,
-        val_miou=miou, wall_s=wall)
+        val_miou=miou, wall_s=wall, data_time_ms=data_ms,
+        projected=projected)
     faults = []
+    if projected < 2 * ENTRY_SCANS[0]:
+        faults.append(f"the CLI's loaders moved native.READS['projection'] "
+                      f"by {projected} (want >= {2 * ENTRY_SCANS[0]}, a "
+                      "train epoch's scans twice)")
     n_steps = ENTRY_SCANS[0] // ENTRY_BATCH * 2
     if "resumed from epoch 0" not in logs:
         faults.append("the second train call did not resume from epoch 0")

@@ -6,7 +6,8 @@ Re-implementations of the reference range pipeline:
 - per-pixel input tensor [x/50, y/50, z/3, intensity, depth/80, mask]
   (reference: semantickitti_rv.py:284-301 prepare_input_label_semantic_with_mask)
 - point-level augs: drop/flip/scale/rotate/jitter (laserscan.py:104-143)
-- RangeShift: random azimuth column roll (semantickitti_rv.py:304-320)
+- RangeShift: random azimuth column roll of the projected images
+  (semantickitti_rv.py:304-320)
 - RangePaste: copy rare-class pixels from a second scan (:210-260)
 - RangeUnion: fill empty pixels from a second scan (:197-207)
 - RangeMix: alternating grid mix of two scans — exact MixTeacher
@@ -19,11 +20,13 @@ none is implemented here either (the per-point KNN post-processing is the
 range pipeline's accuracy lever instead).
 
 A copy of ``openpcseg_tpu/data/range_view.py`` (the port imports nothing
-of the JAX package), held to it by tests/test_torch_range_data.py. It
-projects with the numpy z-buffer (``range_project``) only: the JAX
-package's optional native projection (``openpcseg_tpu/native.py``, C++
-built with g++) is not ported, and differs from the numpy one on a few
-pixels of a scan.
+of the JAX package), held to it by tests/test_torch_range_data.py. The
+dataset projects every image (training, eval, each TTA vote) with the
+native C++ z-buffer (``openpcseg_torch/native.py range_project``, the JAX
+package's default path, bit for bit), which raises where g++ is missing.
+The numpy z-buffer here (``range_project``, float64 angles) lands a few
+pixels of a scan elsewhere; it stays for the per-point eval arrays and
+the synthetic batch, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from .. import native
 from .semantickitti import SemantickittiDataset
 from .semantickitti_meta import CLASS_NAMES
 
@@ -102,15 +106,6 @@ def pack_scan_tensor(sample: Dict[str, np.ndarray]) -> Tuple[np.ndarray, ...]:
         sample["xyz_mask"][..., None],
     ], axis=-1).astype(np.float32)
     return scan, sample["semantic_label"], sample["xyz_mask"]
-
-
-def range_shift(sample: Dict[str, np.ndarray], split: int) -> Dict[str, np.ndarray]:
-    """Roll all images by `split` columns (reference :304-320)."""
-    out = dict(sample)
-    for k in ("xyz", "xyz_mask", "intensity", "range_img", "semantic_label"):
-        out[k] = np.concatenate(
-            [sample[k][:, split:], sample[k][:, :split]], axis=1)
-    return out
 
 
 def range_paste(scan, label, mask, scan_b, label_b, mask_b):
@@ -267,13 +262,20 @@ class SemkittiRangeViewDataset:
         do_shift = self.rng.random() < self.p_shift
         split = int(self.rng.integers(100, self.w - 100)) if do_shift else 0
 
-        sample = range_project(pts.astype(np.float32), rem, lab,
-                               self.h, self.w,
-                               fov_up_deg=self.fov_up,
-                               fov_down_deg=self.fov_down)
+        # the native projection (C++ z-buffer + tensor packing, JAX's own
+        # arithmetic); the column roll of RangeShift is a post-op
+        pts4 = np.concatenate(
+            [pts.astype(np.float32), rem[:, None]], axis=1)
+        scan, label, mask = native.range_project(
+            pts4, lab.astype(np.int32), self.h, self.w,
+            self.fov_up, self.fov_down)[:3]
+        mask = mask.astype(np.float32)
         if do_shift:
-            sample = range_shift(sample, split)
-        return pack_scan_tensor(sample), pc["path"]
+            scan = np.concatenate([scan[:, split:], scan[:, :split]], axis=1)
+            label = np.concatenate(
+                [label[:, split:], label[:, :split]], axis=1)
+            mask = np.concatenate([mask[:, split:], mask[:, :split]], axis=1)
+        return (scan, label, mask), pc["path"]
 
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
         (scan, label, mask), path = self._load_projected(index)

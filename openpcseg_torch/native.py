@@ -1,9 +1,12 @@
-"""Build, load and call the port's native SemanticKITTI readers.
+"""Build, load and call the port's native SemanticKITTI readers and range
+projection.
 
 ``csrc/pcseg_io.cpp`` holds two host readers: ``load_kitti_scan`` (a
 ``.bin`` scan of x, y, z, intensity float32 rows) and ``load_kitti_labels``
 (a ``.label`` file whose lower 16 bits are remapped through a lookup
-table). At first use it is compiled with ``g++ -O3 -shared -fPIC`` into
+table), and ``range_project``, the JAX package's spherical projection
+with its closest-point z-buffer, which writes the packed 6-channel range
+image. At first use it is compiled with ``g++ -O3 -shared -fPIC`` into
 ``build/openpcseg_torch/`` at the repository root, named by a hash of the
 source and flags so an edit forces a rebuild, written under a temporary
 name and moved into place (processes that build at once each finish their
@@ -16,9 +19,17 @@ outside the table becomes 0. ``load_kitti_scan_plain`` and
 ``load_kitti_labels_plain`` are the same rules in numpy, which the tests
 hold the native readers to.
 
+The projection is JAX's float32 arithmetic (``atan2f``, ``asinf``,
+``sqrtf``), so compiled with JAX's flags it gives JAX's native images bit
+for bit; ``range_project_plain`` is the numpy z-buffer of
+``data/range_view.py`` (float64 angles, an argsort), which lands a few
+pixels of a scan elsewhere. The range views project natively; the plain
+version is for the tests and chip_smoke.py.
+
 A missing compiler or a failed build raises, naming the compiler's error;
-no reader falls back to numpy. ``READS`` counts the native reads of each
-kind, incremented after a successful read and nowhere else.
+nothing falls back to numpy. ``READS`` counts the native calls of each
+kind (``scan``, ``labels``, ``projection``), incremented after a
+successful call and nowhere else.
 """
 from __future__ import annotations
 
@@ -29,6 +40,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -37,7 +49,7 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "openpcseg_torch"
 CXX = "g++"
 CXX_FLAGS = ["-O3", "-shared", "-fPIC"]
 CAP = 200_000          # rows read of a scan or label file at most
-READS = {"scan": 0, "labels": 0}
+READS = {"scan": 0, "labels": 0, "projection": 0}
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -47,8 +59,8 @@ def _find_cxx() -> str:
     found = shutil.which(CXX)
     if found is None:
         raise RuntimeError(f"{CXX} not found: the native scan and label "
-                           "readers of openpcseg_torch need a C++ compiler "
-                           "to build")
+                           "readers and range projection of openpcseg_torch "
+                           "need a C++ compiler to build")
     return found
 
 
@@ -85,6 +97,11 @@ def lib() -> ctypes.CDLL:
             so.load_kitti_labels.argtypes = [ctypes.c_char_p, i32p,
                                              ctypes.c_int, i32p, ctypes.c_int]
             so.load_kitti_labels.restype = ctypes.c_int
+            so.range_project.argtypes = [
+                f32p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_float, ctypes.c_float, ctypes.c_void_p, f32p,
+                ctypes.c_void_p, f32p, i32p, i32p]
+            so.range_project.restype = None
             _LIB = so
         return _LIB
 
@@ -115,6 +132,51 @@ def load_kitti_labels(path, lut: np.ndarray, cap: int = CAP) -> np.ndarray:
         raise OSError(f"cannot read {path}")
     _counted("labels")
     return buf
+
+
+def range_project(pts4: np.ndarray, labels: Optional[np.ndarray], h: int,
+                  w: int, fov_up: float = 3.0, fov_down: float = -25.0
+                  ) -> Tuple[np.ndarray, ...]:
+    """Project [N, 4] x, y, z, intensity points onto an h x w range image:
+    (scan [h, w, 6] float32, label [h, w] int32 (zeros where `labels` is
+    None), mask [h, w] float32, px [N] int32, py [N] int32)."""
+    pts4 = np.ascontiguousarray(pts4, np.float32)
+    n = len(pts4)
+    if pts4.ndim != 2 or pts4.shape[1] != 4:
+        raise ValueError(f"points must be [N, 4], not {pts4.shape}")
+    if labels is not None and np.shape(labels) != (n,):
+        raise ValueError(f"labels must be [{n}], not {np.shape(labels)}")
+    if h < 1 or w < 1:
+        raise ValueError(f"an image of {h} x {w} pixels")
+    scan = np.empty((h, w, 6), np.float32)
+    mask = np.empty((h, w), np.float32)
+    label = np.empty((h, w), np.int32)
+    px = np.empty(n, np.int32)
+    py = np.empty(n, np.int32)
+    lab_ptr = None
+    if labels is not None:
+        labels = np.ascontiguousarray(labels, np.int32)
+        lab_ptr = labels.ctypes.data_as(ctypes.c_void_p)
+    lib().range_project(pts4, n, h, w, np.float32(fov_up),
+                        np.float32(fov_down), lab_ptr, scan,
+                        label.ctypes.data_as(ctypes.c_void_p), mask, px, py)
+    _counted("projection")
+    return scan, label, mask, px, py
+
+
+def range_project_plain(pts4: np.ndarray, labels: Optional[np.ndarray],
+                        h: int, w: int, fov_up: float = 3.0,
+                        fov_down: float = -25.0) -> Tuple[np.ndarray, ...]:
+    """range_project through data/range_view.py's numpy z-buffer and
+    pack_scan_tensor."""
+    from .data.range_view import pack_scan_tensor
+    from .data.range_view import range_project as numpy_project
+    pts4 = np.asarray(pts4, np.float32)
+    s = numpy_project(pts4[:, :3], pts4[:, 3], labels, h, w, fov_up,
+                      fov_down)
+    s.setdefault("semantic_label", np.zeros((h, w), np.int32))
+    scan, label, mask = pack_scan_tensor(s)
+    return scan, label, mask, s["proj_x"], s["proj_y"]
 
 
 def load_kitti_scan_plain(path, cap: int = CAP) -> np.ndarray:

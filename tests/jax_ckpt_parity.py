@@ -101,6 +101,17 @@ def load_script():
 SCRIPT = load_script()
 
 
+def run_script(argv) -> int:
+    """SCRIPT.main(argv) in this process, which keeps its torch thread
+    count: the script takes up to 8 intra-op threads for its own run, and
+    a test module runs the port on one (tests/torch_threads.py)."""
+    n = torch.get_num_threads()
+    try:
+        return SCRIPT.main(argv)
+    finally:
+        torch.set_num_threads(n)
+
+
 def fast_jit(jit):
     """`jit` whose functions compile, once per argument signature, at XLA's
     backend optimisation level 0 (FAST_COMPILE)."""

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 import yaml
+from torch_threads import one_torch_thread  # noqa: F401
 
 from openpcseg_torch.core.geometry import (build_parity_plan, devox_table,
                                            p2v_table)

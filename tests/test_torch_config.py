@@ -7,6 +7,7 @@ from pathlib import Path
 
 import pytest
 import yaml
+from torch_threads import one_torch_thread  # noqa: F401
 
 from openpcseg_tpu import config as jax_config
 from openpcseg_torch.config import (CfgDict, ConfigError, cfg_from_list,

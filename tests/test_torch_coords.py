@@ -12,6 +12,7 @@ import pytest
 import torch
 from test_torch_devox import check_devox_table, k8_emulation
 from test_torch_kernels import check_parity_plan
+from torch_threads import one_torch_thread  # noqa: F401
 
 from openpcseg_tpu.core.batch import voxelize_points_batch as jx_voxelize
 from openpcseg_tpu.core.geometry import _corner_table as jx_corner_table

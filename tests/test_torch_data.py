@@ -15,6 +15,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 from mini_trees import make_mini_kitti
+from torch_threads import one_torch_thread  # noqa: F401
 
 import openpcseg_tpu.data as jdata
 from openpcseg_tpu.config import CfgDict as JaxCfgDict

@@ -18,6 +18,7 @@ import torch
 from test_torch_grads import _flag
 from test_torch_kernels import (PALLAS_DEVOX_TOL, devox_tables,
                                 small_pallas_config)  # noqa
+from torch_threads import one_torch_thread  # noqa: F401
 
 import openpcseg_tpu.ops.pallas_devox as pd
 from openpcseg_torch.core.geometry import (DEVOX_CHUNK, devox_table,

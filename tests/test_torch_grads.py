@@ -27,6 +27,7 @@ from test_torch_kernels import (PALLAS_CONV_TOL, PALLAS_DEVOX_TOL, XLA_TOL,
                                 devox_tables, scene_plan,
                                 small_pallas_config,  # noqa
                                 subm_scene, tiled_parent_gemm, updown_scene)
+from torch_threads import one_torch_thread  # noqa: F401
 
 import openpcseg_tpu.ops.pallas_conv as pc
 import openpcseg_tpu.ops.pallas_devox as pd

@@ -2,9 +2,11 @@
 ``Trainer`` of the narrow MinkUNet of tests/test_torch_trainer.py on its
 mini SemanticKITTI tree saves ``ckp/0`` (its initial state, every BN leaf
 perturbed from a seeded numpy generator so the statistics carry real
-values), ``tools/scripts/jax_ckpt_to_torch.py`` converts it, and the
-port's ``cli/infer.py --ckp <converted> --save_pred`` and JAX's
-``infer.py --ckp ckp/0 --save_pred`` (its eval stubbed,
+values; its init compiled at XLA's backend optimisation level 0, as
+``run_jax_cli`` compiles infer.py's, so that compile is done once),
+``tools/scripts/jax_ckpt_to_torch.py`` converts it, and the port's
+``cli/infer.py --ckp <converted> --save_pred`` and JAX's ``infer.py --ckp
+ckp/0 --save_pred`` (its eval stubbed,
 tests/test_torch_jax_ckpt_cli_train.py ``run_jax_cli``) dump each val
 scan's predictions in float32: at least 99.9% of the points agree
 (tests/test_torch_minkunet.py: only a near-tie in the argmax may go the
@@ -13,7 +15,7 @@ import argparse
 
 import jax
 import numpy as np
-from jax_ckpt_parity import SCRIPT
+from jax_ckpt_parity import fast_jit, run_script
 from test_torch_jax_ckpt_cli_train import jax_argv, run_jax_cli
 from test_torch_minkunet import _perturb
 from test_torch_trainer import CFG, N_PTS, ROOT, TINY, _argv, _log_text, tree  # noqa: F401,E501
@@ -35,8 +37,10 @@ def test_port_infer_serves_a_jax_checkpoint(tree, tmp_path, monkeypatch):
     jax_cfg_from_list(["DATA.DATA_PATH", tree, *TINY], jcfgs)
     jt = JaxTrainer(args, jcfgs)
     db = jt._device_batch(next(iter(jt.val_loader)))
-    jt._compile_steps(db)
-    jt.init_or_resume(db)
+    with monkeypatch.context() as mp:     # as infer.py's init compiles
+        mp.setattr(jax, "jit", fast_jit(jax.jit))
+        jt._compile_steps(db)
+        jt.init_or_resume(db)
     rng = np.random.default_rng(0)
     state = jax.device_get(jt.state)
     jt.state = state.replace(params=_perturb(state.params, rng),
@@ -45,7 +49,7 @@ def test_port_infer_serves_a_jax_checkpoint(tree, tmp_path, monkeypatch):
     ckp = next(jlogs.glob("**/ckp/0"))
 
     out = tmp_path / "from_jax.pt"
-    assert SCRIPT.main(["--cfg_file", str(ROOT / CFG), "--ckp", str(ckp),
+    assert run_script(["--cfg_file", str(ROOT / CFG), "--ckp", str(ckp),
                         "--out", str(out), "--set", "DATA.DATA_PATH", tree,
                         *TINY]) == 0
     jpred, tpred = tmp_path / "jax_pred", tmp_path / "port_pred"

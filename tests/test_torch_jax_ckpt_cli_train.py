@@ -14,7 +14,7 @@ import sys
 
 import jax
 import numpy as np
-from jax_ckpt_parity import SCRIPT, fast_jit
+from jax_ckpt_parity import fast_jit, run_script
 from test_torch_trainer import CFG, ROOT, TINY, _argv, _log_text, tree  # noqa: F401,E501
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -59,7 +59,7 @@ def test_jax_train_then_port_train_resumes(tree, tmp_path, monkeypatch):
                                   "--log_interval", "1"), monkeypatch)
     ckp = next(jlogs.glob("**/ckp/0"))
     out = tmp_path / "from_jax.pt"
-    assert SCRIPT.main(["--cfg_file", str(ROOT / CFG), "--ckp", str(ckp),
+    assert run_script(["--cfg_file", str(ROOT / CFG), "--ckp", str(ckp),
                         "--out", str(out), "--seed", "0", "--set",
                         "DATA.DATA_PATH", tree, *TINY]) == 0
     logs = tmp_path / "port"

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 import openpcseg_tpu.ops.pallas_conv as pc
 import openpcseg_tpu.ops.pallas_devox as pd

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from openpcseg_tpu.config import CfgDict
 from openpcseg_tpu.engine import SegTask as JaxSegTask

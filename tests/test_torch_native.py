@@ -13,6 +13,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 from mini_trees import KITTI_RAW_IDS, make_mini_kitti
+from torch_threads import one_torch_thread  # noqa: F401
 
 from openpcseg_tpu import native as jnative
 from openpcseg_tpu.config import CfgDict as JaxCfgDict
@@ -101,7 +102,8 @@ def test_reads_count_successful_native_reads_only(tmp_path, rng):
     with pytest.raises(FileNotFoundError):
         native.load_kitti_scan(tmp_path / "missing.bin")
     assert native.READS == {"scan": before["scan"] + 1,
-                            "labels": before["labels"] + 1}
+                            "labels": before["labels"] + 1,
+                            "projection": before["projection"]}
 
 
 def _tree(root, rng):
@@ -133,7 +135,8 @@ def test_view_matches_jax_native_view(tmp_path, rng, jax_lib, scribble):
     assert len(port) == len(jax) == 3
     before = dict(native.READS)
     items = [port[i] for i in range(3)]
-    assert native.READS == {k: v + 3 for k, v in before.items()}
+    assert native.READS == dict(before, scan=before["scan"] + 3,
+                                labels=before["labels"] + 3)
     for got, want in zip(items, (jax[i] for i in range(3))):
         assert got["path"] == want["path"]
         for k in ("xyzret", "labels"):
@@ -231,17 +234,20 @@ def test_processes_build_into_one_directory(tmp_path):
 
 def test_source_is_the_jax_readers():
     """The port's source holds the JAX package's two readers, line for line
-    but for one redundant test, and nothing else of its library."""
+    but for one redundant test, and its range projection line for line,
+    and nothing else of its library."""
     text = (ROOT / "openpcseg_torch/csrc/pcseg_io.cpp").read_text()
     jax = (ROOT / "native/pcseg_io.cpp").read_text()
 
-    def body(src, name, end):
-        return src[src.index(f"int {name}("):src.index(end, src.index(
-            f"int {name}("))]
-    assert body(text, "load_kitti_scan", "\n}\n") == body(
-        jax, "load_kitti_scan", "\n}\n")
-    assert body(text, "load_kitti_labels", "\n}\n") == body(
-        jax, "load_kitti_labels", "\n}\n").replace(
+    def body(src, head, end):
+        return src[src.index(f"{head}("):src.index(end, src.index(
+            f"{head}("))]
+    assert body(text, "int load_kitti_scan", "\n}\n") == body(
+        jax, "int load_kitti_scan", "\n}\n")
+    assert body(text, "int load_kitti_labels", "\n}\n") == body(
+        jax, "int load_kitti_labels", "\n}\n").replace(
         "(sem >= 0 && sem < lut_n)", "(sem < lut_n)")
-    for gone in ("range_project", "aug_points_xyz", "load_float_rows"):
+    assert body(text, "void range_project", "\n}\n") == body(
+        jax, "void range_project", "\n}\n")
+    for gone in ("aug_points_xyz", "load_float_rows"):
         assert gone not in text

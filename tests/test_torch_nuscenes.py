@@ -9,8 +9,10 @@ submission dump and CENet 32 x 1088 against the JAX package on the CPU.
   training with the yaml's augmentation (GlobalAugment_LP: LaserMix /
   PolarMix, ring ids rebuilt by ``ring_from_pitch``) and without, and eval
   with its <pad> tail, on tests/test_nuscenes.py's mini tree and on a tree
-  of the ray-cast writer (JAX's native range projection off, as
-  tests/test_torch_range_data.py has it). The scene split, SPLIT_FILE and
+  of the ray-cast writer, with the range view's projection on its numpy
+  path on both sides (``numpy_projection``, as tests/test_torch_range_data.py
+  has it); the range view also on both sides' default path, the native
+  C++ z-buffer. The scene split, SPLIT_FILE and
   ``ring_from_pitch`` give JAX's answers.
 - ``cli/infer.py dump_predictions`` writes JAX's nuScenes submission files
   (lidarseg/val/<sample_data_token>_lidarseg.bin, uint8 raw ids) byte for
@@ -46,6 +48,7 @@ from openpcseg_tpu.data import nuscenes_meta as jmeta
 from openpcseg_tpu.engine import SegTask as JaxSegTask
 from openpcseg_tpu.engine import TrainState
 from openpcseg_torch import data as tdata
+from openpcseg_torch import native as tnative
 from openpcseg_torch.cli import infer, train
 from openpcseg_torch.config import CfgDict, cfg_from_yaml_file
 from openpcseg_torch.data import nuscenes as tnusc
@@ -103,6 +106,8 @@ def trees(tmp_path_factory):
 def numpy_projection(monkeypatch):
     monkeypatch.setattr(jnative, "range_project_native",
                         lambda *a, **k: None)
+    monkeypatch.setattr(tnative, "range_project",
+                        tnative.range_project_plain)
 
 
 def _same(got, want):
@@ -167,6 +172,24 @@ def test_scene_split_and_split_file_match_jax(trees, tmp_path):
 @pytest.mark.parametrize("mode", ["augment", "no_augment", "eval"])
 def test_views_give_jax_batches_over_two_epochs(trees, numpy_projection,
                                                 tree, modality, mode):
+    _views_match(trees, tree, modality, mode)
+
+
+@pytest.mark.parametrize("tree", ["mini", "raycast"])
+@pytest.mark.parametrize("mode", ["augment", "no_augment", "eval"])
+def test_range_view_gives_jax_native_batches(trees, tree, mode):
+    """The range view on both sides' default path, the native projection
+    (JAX's where its library builds): every image of the port's view
+    through native.range_project, and JAX's bytes."""
+    assert jnative.get_lib() is not None
+    projected = tnative.READS["projection"]
+    _views_match(trees, tree, "range", mode)
+    assert tnative.READS["projection"] - projected >= 2
+
+
+def _views_match(trees, tree, modality, mode):
+    """The view of `modality` from its yaml's DATA block on `tree` under
+    `mode`: JAX's batches byte for byte over two epochs."""
     data = dict(_yaml(VIEWS[modality]).DATA, DATA_PATH=trees[tree])
     if mode == "no_augment":
         data["AUGMENT"] = "NoAugment"

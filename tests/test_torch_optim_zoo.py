@@ -21,6 +21,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from openpcseg_tpu.config import CfgDict
 from openpcseg_tpu.optim import build_optimizer as jx_build_optimizer

@@ -1,14 +1,15 @@
 """The range view of the port against the JAX package's: the copy of
-``data/range_view.py`` (projection, packing, shift / paste / union / mix,
-the synthetic batch, the TTA votes) held to its original, and the range
+``data/range_view.py`` (projection, packing, paste / union / mix, the
+synthetic batch, the TTA votes) held to its original, and the range
 loaders byte-identical to JAX's over two epochs, training and eval, the
-eval's per-point arrays and ``<pad>`` tail included. JAX's view projects
-with its native C++ z-buffer where that library builds (it differs from
-the numpy one on a few pixels a scan); the port has only the numpy one, so
-these tests turn JAX's native projection off. Also: every shipped range
-yaml through ``build_dataloader`` and ``SegTask``, the optimizer and
-scheduler builders, and what still raises (POST_CRF, the other
-optimizers) with the item that ports it."""
+eval's per-point arrays and ``<pad>`` tail included: with both views on
+their default path, the native C++ z-buffer (``native`` cases), and with
+both on the numpy one (``numpy_projection``: JAX's native projection off,
+the port's view pointed at ``native.range_project_plain``; the numpy
+z-buffer differs from the native one on a few pixels a scan). Also: every
+shipped range yaml through ``build_dataloader`` and ``SegTask``, the
+optimizer and scheduler builders, and what still raises (POST_CRF, the
+other optimizers) with the item that ports it."""
 import numpy as np
 import pytest
 import torch
@@ -20,6 +21,7 @@ import openpcseg_tpu.data.range_view as jrv
 from openpcseg_tpu import native as jnative
 from openpcseg_tpu.config import CfgDict as JaxCfgDict
 from openpcseg_torch import data as tdata
+from openpcseg_torch import native as tnative
 from openpcseg_torch.config import CfgDict, cfg_from_yaml_file
 from openpcseg_torch.data import range_view as trv
 from openpcseg_torch.engine.task import SegTask
@@ -41,6 +43,8 @@ def tree(tmp_path_factory):
 def numpy_projection(monkeypatch):
     monkeypatch.setattr(jnative, "range_project_native",
                         lambda *a, **k: None)
+    monkeypatch.setattr(tnative, "range_project",
+                        tnative.range_project_plain)
 
 
 def _yaml(path):
@@ -73,7 +77,6 @@ def test_range_view_functions_match(rng):
         _same(got, want)
         _same(dict(enumerate(trv.pack_scan_tensor(got))),
               dict(enumerate(jrv.pack_scan_tensor(want))))
-        _same(trv.range_shift(got, 77), jrv.range_shift(want, 77))
     a = trv.synthetic_range_batch(0, 2, h=16, w=128)
     _same(a, jrv.synthetic_range_batch(0, 2, h=16, w=128))
     s1 = (a["scan"][0], a["label"][0], a["mask"][0])
@@ -88,12 +91,23 @@ def test_range_view_functions_match(rng):
                 *s1, *s2, np.random.default_rng(seed)))))
 
 
-@pytest.mark.parametrize("training", [True, False])
+@pytest.mark.parametrize("training,projection", [
+    pytest.param(True, "numpy", id="True"),
+    pytest.param(False, "numpy", id="False"),
+    pytest.param(True, "native", id="native-True"),
+    pytest.param(False, "native", id="native-False")])
 def test_range_loader_yields_jax_batches_over_two_epochs(
-        tree, training, numpy_projection):
+        tree, training, projection, request):
     """The shipped CENet yaml's DATA block (every point and range
     augmentation on) at 32 x 256: the same bytes as JAX's over two epochs,
-    per-point eval arrays and the <pad> tail included; the TTA votes too."""
+    per-point eval arrays and the <pad> tail included; the TTA votes too.
+    Natively, every image of the port's loader goes through
+    native.range_project."""
+    if projection == "numpy":
+        request.getfixturevalue("numpy_projection")
+    else:
+        assert jnative.get_lib() is not None
+    projected = tnative.READS["projection"]
     d = dict(_yaml(YAMLS[0]).DATA, DATA_PATH=str(tree), H=32, W=256)
     kw = dict(training=training, point_cap=4096, num_workers=1, seed=9)
     tset, tload = tdata.build_dataloader(CfgDict(d), "range", 2, **kw)
@@ -113,6 +127,8 @@ def test_range_loader_yields_jax_batches_over_two_epochs(
         tset.resample()
         jset.resample()
     assert pads == (0 if training else 2)
+    projected = tnative.READS["projection"] - projected
+    assert (projected >= 2 * len(tset)) == (projection == "native")
     if not training:
         assert not got[-1]["p_valid"][1].any()
         for g, w in zip(tset.get_tta_sample(1, voting=3),

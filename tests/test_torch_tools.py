@@ -11,6 +11,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401
 
 from openpcseg_torch.cli import golden_run
 from openpcseg_torch.data.raycast import raycast_scan

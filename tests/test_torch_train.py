@@ -36,6 +36,7 @@ import optax
 import pytest
 import torch
 from test_torch_minkunet import MODEL, NUM_CLASS, TPU, _perturb
+from torch_threads import one_torch_thread  # noqa: F401
 
 from openpcseg_tpu.config import CfgDict
 from openpcseg_tpu import losses as jx_losses
