@@ -1,0 +1,6 @@
+"""Summed bound of the program's CUDA kernel calls over their device time (%): eval."""
+from benchmark.lib import readers
+
+
+def read(rec):
+    return readers.kernel_roofline_share(rec, "eval")

@@ -1,0 +1,6 @@
+"""Model FLOPs of the traced steps over (the wall of the same steps run untraced x the bf16 peak) (%): serve."""
+from benchmark.lib import readers
+
+
+def read(rec):
+    return readers.mfu(rec, "serve")
