@@ -41,6 +41,13 @@ statistics over the ranks, the gradients are averaged before the clip,
 the loss is averaged and num_voxels / voxel_overflow are summed, rank 0's
 buffers are taken after each step, and the eval histograms are summed
 (``parallel/ddp.py``). Without a group no collective runs.
+
+Each step marks its phases with ``utils/spans.py``'s spans (recorded only
+inside ``spans.recording()``): the step's own span (``train_step``,
+``eval_step``, ``predict_step``, ``predict_probs_step``) holds
+``preprocess`` (``voxelize``, ``geometry``), ``forward``, ``loss``,
+``backward``, ``update`` (``allreduce`` with a group) and
+``postprocess``; ``batch_to_device`` is ``to_device``.
 """
 from __future__ import annotations
 
@@ -61,6 +68,7 @@ from ..ops.coords import Keys
 from ..optim import build_optimizer, set_step
 from ..parallel import ddp
 from ..utils.metrics import confusion_matrix
+from ..utils.spans import span
 
 
 def default_caps(voxel_cap0: int, num_levels: int,
@@ -80,7 +88,8 @@ def default_caps(voxel_cap0: int, num_levels: int,
 def batch_to_device(batch: Dict[str, np.ndarray],
                     device) -> Dict[str, torch.Tensor]:
     """numpy batch dict (data.raycast schema) -> tensors on `device`."""
-    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+    with span("to_device"):
+        return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
 class SegTask:
@@ -223,31 +232,35 @@ class SegTask:
         (VoxelBatch, VoxelPyramid); for a fusion-input model also the
         range tables of each resolution its gates use
         (``VoxelPyramid.range``), from each voxel's pxpy."""
-        if self.modality == "cylinder":
-            vb = cylinder_points_batch(
-                batch["xyz"], batch["feats"][..., 3:], batch["labels"],
-                batch["valid"], voxel_cap=self.caps[0],
-                num_class=self.num_class, **self.cylinder)
-            points = dict(point_coords=vb.point_grid,
-                          point_batch=vb.point_batch.clamp(min=0),
-                          point_valid=vb.point_valid,
-                          point_to_voxel0=vb.inverse_map)
-        else:
-            vb = voxelize_points_batch(
-                batch["xyz"], batch["feats"], batch["labels"],
-                batch["valid"], voxel_size=self.voxel_size,
-                voxel_cap=self.caps[0])
-            points = {}
-        pyr = build_pyramid(
-            vb.voxel_coords, vb.voxel_valid, self.caps,
-            level0_keys=Keys(vb.voxel_keys_hi, vb.voxel_keys_lo),
-            **self.geometry, **points)
-        if self.fusion_input:
-            from ..ops.range_fusion import range_tables
-            b, h, w, _ = batch["range_image"].shape
-            pyr.range = range_tables(
-                self.voxel_pxpy(vb, batch), pyr.points.batch,
-                pyr.points.valid, b, h, w, self.model.RANGE_SCALES)
+        with span("preprocess"):
+            with span("voxelize"):
+                if self.modality == "cylinder":
+                    vb = cylinder_points_batch(
+                        batch["xyz"], batch["feats"][..., 3:],
+                        batch["labels"], batch["valid"],
+                        voxel_cap=self.caps[0], num_class=self.num_class,
+                        **self.cylinder)
+                    points = dict(point_coords=vb.point_grid,
+                                  point_batch=vb.point_batch.clamp(min=0),
+                                  point_valid=vb.point_valid,
+                                  point_to_voxel0=vb.inverse_map)
+                else:
+                    vb = voxelize_points_batch(
+                        batch["xyz"], batch["feats"], batch["labels"],
+                        batch["valid"], voxel_size=self.voxel_size,
+                        voxel_cap=self.caps[0])
+                    points = {}
+            with span("geometry"):
+                pyr = build_pyramid(
+                    vb.voxel_coords, vb.voxel_valid, self.caps,
+                    level0_keys=Keys(vb.voxel_keys_hi, vb.voxel_keys_lo),
+                    **self.geometry, **points)
+                if self.fusion_input:
+                    from ..ops.range_fusion import range_tables
+                    b, h, w, _ = batch["range_image"].shape
+                    pyr.range = range_tables(
+                        self.voxel_pxpy(vb, batch), pyr.points.batch,
+                        pyr.points.valid, b, h, w, self.model.RANGE_SCALES)
         return vb, pyr
 
     @staticmethod
@@ -268,7 +281,8 @@ class SegTask:
                  "range_image": batch["range_image"]}
         else:
             x = vb.point_feats if self.point_input else vb.voxel_feats
-        out = self.model(x, pyr, **kw)
+        with span("forward"):
+            out = self.model(x, pyr, **kw)
         return out if isinstance(out, tuple) else (out, {})
 
     def voxel_overflow(self, vb, pyr) -> torch.Tensor:
@@ -284,25 +298,32 @@ class SegTask:
         The clipped gradients stay in each parameter's ``.grad``."""
         if self.optimizer is None:
             raise RuntimeError("SegTask.train_step needs an OPTIM block")
-        self.model.train()
-        if self.is_range:
-            return self._range_train_step(batch)
+        with span("train_step"):
+            self.model.train()
+            if self.is_range:
+                return self._range_train_step(batch)
+            return self._voxel_train_step(batch)
+
+    def _voxel_train_step(self, batch: Dict[str, torch.Tensor]):
+        """The step of a voxel-, point- or fusion-input model: the geometry
+        pass, the model, the configured losses, clip and update."""
         vb, pyr = self.preprocess(batch)
         self.optimizer.zero_grad(set_to_none=True)
         logits, aux = self._run_model(vb, pyr, batch,
                                       generator=self.generator)
-        loss = self.losses(logits, vb.voxel_labels, vb.voxel_valid,
-                           state=self.loss_state if self.losses.stateful
-                           else None, generator=self.generator)
-        if self.losses.stateful:     # JAX task.py:341, :360-394
-            loss, self.loss_state = loss
-        if "point_refine_logits" in aux:
-            # Cylinder3D's auxiliary point-refinement CE (JAX
-            # _loss_from_outputs)
-            loss = loss + cross_entropy(
-                aux["point_refine_logits"], vb.point_labels, vb.point_valid,
-                ignore_index=self.losses.ignore_index,
-                label_smoothing=self.losses.label_smoothing)
+        with span("loss"):
+            loss = self.losses(logits, vb.voxel_labels, vb.voxel_valid,
+                               state=self.loss_state if self.losses.stateful
+                               else None, generator=self.generator)
+            if self.losses.stateful:     # JAX task.py:341, :360-394
+                loss, self.loss_state = loss
+            if "point_refine_logits" in aux:
+                # Cylinder3D's auxiliary point-refinement CE (JAX
+                # _loss_from_outputs)
+                loss = loss + cross_entropy(
+                    aux["point_refine_logits"], vb.point_labels,
+                    vb.point_valid, ignore_index=self.losses.ignore_index,
+                    label_smoothing=self.losses.label_smoothing)
         lr, grad_norm = self._update(loss)
         return self._reduced({"loss": loss.detach(), "lr": lr,
                               "num_voxels": vb.num_voxels,
@@ -319,17 +340,21 @@ class SegTask:
         """Backward, the gradients' mean over the ranks, clip, the optimizer
         step at the scheduled lr and rank 0's buffers -> (lr, the gradient
         norm before clipping)."""
-        loss.backward()
-        if self.group is not None:      # JAX task.py:381-382, :424
-            ddp.average_gradients(self.model.parameters(), self.group)
-        params = [p for p in self.model.parameters() if p.grad is not None]
-        clip = self.optim_cfg.get("GRAD_NORM_CLIP", None)
-        grad_norm = torch.nn.utils.clip_grad_norm_(
-            params, float(clip) if clip else float("inf"))
-        lr = set_step(self.optimizer, self.lr_fn, self.step)
-        self.optimizer.step()
-        if self.group is not None:
-            ddp.broadcast_buffers(self.model, self.group)
+        with span("backward"):
+            loss.backward()
+        with span("update"):
+            if self.group is not None:      # JAX task.py:381-382, :424
+                with span("allreduce"):
+                    ddp.average_gradients(self.model.parameters(), self.group)
+            params = [p for p in self.model.parameters()
+                      if p.grad is not None]
+            clip = self.optim_cfg.get("GRAD_NORM_CLIP", None)
+            grad_norm = torch.nn.utils.clip_grad_norm_(
+                params, float(clip) if clip else float("inf"))
+            lr = set_step(self.optimizer, self.lr_fn, self.step)
+            self.optimizer.step()
+            if self.group is not None:
+                ddp.broadcast_buffers(self.model, self.group)
         self.step += 1
         return lr, grad_norm.detach()
 
@@ -340,9 +365,11 @@ class SegTask:
         from ..losses.range_losses import range_seg_loss
 
         self.optimizer.zero_grad(set_to_none=True)
-        logits, aux = self.model(batch["scan"], generator=self.generator)
-        loss = range_seg_loss(logits, aux, batch["label"],
-                              **self.range_loss_kwargs)
+        with span("forward"):
+            logits, aux = self.model(batch["scan"], generator=self.generator)
+        with span("loss"):
+            loss = range_seg_loss(logits, aux, batch["label"],
+                                  **self.range_loss_kwargs)
         lr, grad_norm = self._update(loss)
         zero = torch.zeros((), dtype=torch.int32, device=self.device)
         return self._reduced({"loss": loss.detach(), "lr": lr,
@@ -353,7 +380,8 @@ class SegTask:
     def range_logits(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Eval forward of a range model -> logits [B, num_class, H, W]."""
         self.model.eval()
-        return self.model(batch["scan"])[0]
+        with span("forward"):
+            return self.model(batch["scan"])[0]
 
     def crf_logits(self, batch: Dict[str, torch.Tensor],
                    logits: torch.Tensor) -> torch.Tensor:
@@ -375,11 +403,12 @@ class SegTask:
         off, and a per-point histogram; else a per-pixel one. With
         MODEL.POST_CRF the argmax is the CRF-refined one's."""
         logits = self.range_logits(batch)
-        if self.crf is not None:
-            logits = self.crf_logits(batch, logits)
-        return self._summed(self.range_hist(batch, logits),
-                            torch.zeros((), dtype=torch.int64,
-                                        device=self.device))
+        with span("postprocess"):
+            if self.crf is not None:
+                logits = self.crf_logits(batch, logits)
+            hist = self.range_hist(batch, logits)
+        return self._summed(hist, torch.zeros((), dtype=torch.int64,
+                                              device=self.device))
 
     def range_hist(self, batch: Dict[str, torch.Tensor],
                    logits: torch.Tensor) -> torch.Tensor:
@@ -445,23 +474,30 @@ class SegTask:
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         """Forward + point re-projection + confusion matrix."""
-        if self.is_range:
-            return self._range_eval_step(batch)
-        vb, pyr, logits = self.forward(batch)
-        hist = confusion_matrix(self._point_pred(vb, logits),
-                                vb.point_labels, vb.point_valid,
-                                self.num_class)
-        return self._summed(hist, self.voxel_overflow(vb, pyr),
-                            level_counts=pyr.level_counts)
+        with span("eval_step"):
+            if self.is_range:
+                return self._range_eval_step(batch)
+            vb, pyr, logits = self.forward(batch)
+            with span("postprocess"):
+                hist = confusion_matrix(self._point_pred(vb, logits),
+                                        vb.point_labels, vb.point_valid,
+                                        self.num_class)
+            return self._summed(hist, self.voxel_overflow(vb, pyr),
+                                level_counts=pyr.level_counts)
 
     @torch.no_grad()
     def predict_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Per-point predictions [B, Np] int32 (a range model's: per pixel,
         [B, H, W])."""
-        if self.is_range:
-            return self.range_logits(batch).argmax(1).to(torch.int32)
-        vb, _, logits = self.forward(batch)
-        return self._point_pred(vb, logits).reshape(batch["xyz"].shape[0], -1)
+        with span("predict_step"):
+            if self.is_range:
+                logits = self.range_logits(batch)
+                with span("postprocess"):
+                    return logits.argmax(1).to(torch.int32)
+            vb, _, logits = self.forward(batch)
+            with span("postprocess"):
+                return self._point_pred(vb, logits).reshape(
+                    batch["xyz"].shape[0], -1)
 
     @torch.no_grad()
     def predict_probs_step(self, batch: Dict[str, torch.Tensor]
@@ -472,17 +508,23 @@ class SegTask:
         the points through the inverse map (0 where a point has no voxel);
         a range model's pixel probabilities gathered at each vote's own
         ``p_py * W + p_px`` (0 where ``p_valid`` is False; no KNN)."""
-        if self.is_range:
-            probs = torch.softmax(self.range_logits(batch).float(), dim=1)
-            v, c, h, w = probs.shape
-            lin = (batch["p_py"] * w + batch["p_px"]).long()   # [V, N]
-            ppt = probs.reshape(v, c, h * w).gather(
-                2, lin[:, None, :].expand(v, c, lin.shape[1]))
-            return torch.where(batch["p_valid"][..., None],
-                               ppt.transpose(1, 2), 0.0)
-        vb, _, logits = self.forward(batch)
-        probs = torch.softmax(self.class_scores(logits).float(), dim=-1)
-        inv = vb.inverse_map
-        point = torch.where((inv >= 0)[:, None],
-                            probs[inv.clamp(min=0).long()], 0.0)
-        return point.reshape(batch["xyz"].shape[0], -1, self.num_class)
+        with span("predict_probs_step"):
+            if self.is_range:
+                logits = self.range_logits(batch)
+                with span("postprocess"):
+                    probs = torch.softmax(logits.float(), dim=1)
+                    v, c, h, w = probs.shape
+                    lin = (batch["p_py"] * w + batch["p_px"]).long()  # [V, N]
+                    ppt = probs.reshape(v, c, h * w).gather(
+                        2, lin[:, None, :].expand(v, c, lin.shape[1]))
+                    return torch.where(batch["p_valid"][..., None],
+                                       ppt.transpose(1, 2), 0.0)
+            vb, _, logits = self.forward(batch)
+            with span("postprocess"):
+                probs = torch.softmax(self.class_scores(logits).float(),
+                                      dim=-1)
+                inv = vb.inverse_map
+                point = torch.where((inv >= 0)[:, None],
+                                    probs[inv.clamp(min=0).long()], 0.0)
+                return point.reshape(batch["xyz"].shape[0], -1,
+                                     self.num_class)

@@ -33,7 +33,9 @@ its own, whose caps hold the votes and which shares the model.
 """
 from __future__ import annotations
 
+import itertools
 import time
+from contextlib import ExitStack
 from pathlib import Path
 from typing import Optional
 
@@ -45,6 +47,7 @@ from ..config import CfgDict, log_config_to_file
 from ..data import build_dataloader, collate, num_classes_for, rank_and_world
 from ..data.semantickitti_meta import CLASS_NAMES
 from ..parallel.ddp import all_reduce_sum, shard_train_step
+from ..utils import spans
 from ..utils.checkpoint import barrier, merge_matching, write_atomic
 from ..utils.logger import AverageMeter, MetricsWriter, create_logger
 from ..utils.metrics import confusion_matrix, crop_hist, miou_from_hist
@@ -74,7 +77,7 @@ class Trainer:
         self.is_main = self.rank == 0
         self.log_interval = getattr(args, "log_interval", 50)
         self.profile_dir = getattr(args, "profile_dir", None)
-        self._profiler = None
+        self._profiler = self._spans = self._records = None
 
         root = Path(getattr(args, "log_dir", "logs"))
         self.exp_dir = root / cfgs.get("EXP_GROUP_PATH", "exp") / cfgs.get(
@@ -225,7 +228,9 @@ class Trainer:
 
     def _profile(self, it: int) -> None:
         """--profile_dir: a torch.profiler trace of steps PROFILE_STEPS of
-        the first trained epoch, once per run."""
+        the first trained epoch (their loader waits and copies included),
+        once per run, with the steps' phase spans recorded and merged into
+        the trace on a track of their own."""
         if not self.profile_dir:
             return
         from torch.profiler import ProfilerActivity, profile
@@ -235,20 +240,25 @@ class Trainer:
                 acts.append(ProfilerActivity.CUDA)
             self._profiler = profile(activities=acts)
             self._profiler.start()
+            self._spans = ExitStack()
+            self._records = self._spans.enter_context(spans.recording())
         elif it == PROFILE_STEPS[1] and self._profiler is not None:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+            self._spans.close()
             self._profiler.stop()
             out = Path(self.profile_dir)
             out.mkdir(parents=True, exist_ok=True)
             trace = out / f"trace_{int(time.time())}.json"
             self._profiler.export_chrome_trace(str(trace))
-            self._profiler = None
+            n = spans.merge_chrome_trace(trace, self._records)
+            self._profiler = self._spans = self._records = None
             self.profile_dir = None
-            self.logger.info(f"profiler trace written to {trace}")
+            self.logger.info(f"profiler trace written to {trace} ({n} "
+                             "phase spans)")
 
-    def _flush(self, pending, epoch: int, it: int, t_data, interval_t0,
-               loss_meter) -> None:
+    def _flush(self, pending, epoch: int, it: int, t_data, t_h2d,
+               interval_t0, loss_meter) -> None:
         """One copy of every pending step's scalars to the host; log the
         interval."""
         vals = torch.stack([torch.stack([
@@ -272,7 +282,7 @@ class Trainer:
         self._write_metrics(step, loss=int_loss, lr=lr,
                             num_voxels=vals[-1, 2], grad_norm=vals[-1, 3],
                             voxel_overflow=overflow, data_time=t_data.avg,
-                            step_time=step_time,
+                            h2d_time=t_h2d.avg, step_time=step_time,
                             scans_per_s=self.global_batch / step_time,
                             **mem)
         if self.tb is not None:
@@ -282,23 +292,36 @@ class Trainer:
         self.logger.info(
             f"epoch {epoch} it {it + 1}/{len(self.train_loader)} "
             f"loss {int_loss:.4f} lr {lr:.5f} step {step_time * 1e3:.0f}ms "
-            f"data {t_data.avg * 1e3:.0f}ms")
+            f"data {t_data.avg * 1e3:.0f}ms h2d {t_h2d.avg * 1e3:.0f}ms")
 
     def train_one_epoch(self, epoch: int) -> None:
+        """One epoch of train steps. ``data_time`` is the wait on the loader
+        alone (the ``load`` span), ``h2d_time`` the batch's pageable copy
+        to the device (``to_device``), which waits for the card to finish
+        the step before."""
         self.init_or_resume()
-        loss_meter, t_data = AverageMeter(), AverageMeter()
-        last = interval_t0 = time.time()
+        loss_meter, t_data, t_h2d = (AverageMeter(), AverageMeter(),
+                                     AverageMeter())
+        interval_t0 = time.time()
         pending = []
-        for it, batch in enumerate(self.train_loader):
-            db = self._device_batch(batch)
-            t_data.update(time.time() - last)
+        batches = iter(self.train_loader)
+        for it in itertools.count():
             self._profile(it)
+            t0 = time.time()
+            with spans.span("load"):
+                batch = next(batches, None)
+            if batch is None:
+                break
+            t1 = time.time()
+            db = self._device_batch(batch)
+            t2 = time.time()
+            t_data.update(t1 - t0)
+            t_h2d.update(t2 - t1)
             pending.append(self._train_step(db))
             if (it + 1) % self.log_interval == 0:
-                self._flush(pending, epoch, it, t_data, interval_t0,
+                self._flush(pending, epoch, it, t_data, t_h2d, interval_t0,
                             loss_meter)
                 interval_t0 = time.time()
-            last = time.time()
         self.train_set.resample()
 
     def evaluate(self, prefix: str = "val") -> float:

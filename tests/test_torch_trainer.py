@@ -120,16 +120,44 @@ def test_restore_is_bit_exact_and_the_lr_goes_on(tree, tmp_path):
 
 def test_profile_pruning_and_shape_tolerant_pretrained_load(
         tree, tmp_path, monkeypatch):
-    """--profile_dir writes a trace of the profiled steps; only the newest
+    """--profile_dir writes a trace of the profiled steps, the steps' phase
+    spans merged into it on the trace's clock; metrics.jsonl's data_time
+    is the loader's wait and h2d_time the batch's copy; only the newest
     --max_ckp_save_num checkpoints stay; --pretrained_ckp loads every saved
     tensor whose name and shape match and skips the rest."""
     monkeypatch.setattr(trainer_mod, "PROFILE_STEPS", (0, 1))
     args, cfgs = train.parse_config(_argv(
         tree, tmp_path / "a", "--max_ckp_save_num", "2", "--profile_dir",
-        str(tmp_path / "prof")))
+        str(tmp_path / "prof"), "--log_interval", "1"))
     t1 = Trainer(args, cfgs)
     t1.train_one_epoch(0)
-    assert len(list((tmp_path / "prof").glob("trace_*.json"))) == 1
+    traces = list((tmp_path / "prof").glob("trace_*.json"))
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    phases = [e for e in events if e.get("cat") == "span"]
+    # step 0 whole: its loader wait, its copy and every phase of the step
+    assert sorted(e["name"] for e in phases) == sorted([
+        "load", "to_device", "train_step", "preprocess", "voxelize",
+        "geometry", "forward", "loss", "backward", "update"])
+    assert {e["args"]["step"] for e in phases} == {1}
+    at = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in phases}
+    assert at["load"][1] <= at["to_device"][0]
+    assert at["to_device"][1] <= at["train_step"][0]
+    # the spans sit on the trace's clock: the step's host ops lie inside
+    # its span (1 ms of room for a CPU shared with other tests)
+    ops = [e for e in events if e.get("cat") == "cpu_op"
+           and at["preprocess"][0] <= e["ts"] <= at["preprocess"][1]]
+    assert any(e["name"] == "aten::sort" for e in ops)
+    a, b = at["train_step"]
+    assert all(a - 1e3 <= e["ts"] and e["ts"] + e["dur"] <= b + 1e3
+               for e in events if e.get("cat") == "cpu_op"
+               and e["name"] == "aten::sort")
+    recs = [json.loads(line) for line in (t1.exp_dir / "metrics.jsonl")
+            .open()]
+    steps = [r for r in recs if "loss" in r]
+    assert len(steps) == 2
+    for r in steps:
+        assert 0 <= r["data_time"] < 60 and 0 <= r["h2d_time"] < 60
     for epoch in range(4):
         t1.save_checkpoint(epoch)
     assert [e for e, _ in t1.checkpoints()] == [2, 3]
